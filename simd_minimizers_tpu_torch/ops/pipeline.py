@@ -1,0 +1,200 @@
+"""The plain PyTorch version of the minimizer kernel.
+
+Counterpart of `simd_minimizers_tpu/ops/pipeline.py` for the port's slice
+(nt hasher, 2-bit DNA, minimizer mode): the same lane matrix with l - 1
+char halos, doubling folds for the k-mer hash and the T/G count, packed
+(top16 | column) sliding minima, strand blend, and adjacent dedup. It
+compacts with a mask select instead of the TPU butterfly. It runs on any
+device; the CPU tests use it, and on the card it is what the CUDA kernel
+(`ops/fused.py`) is held against.
+
+u32 values ride in int64 tensors (see ops/layout.py); positions come out
+as int32 (n < 2^31 per call).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from simd_minimizers_tpu.utils.bits import INVALID as _INVALID_NP
+
+from .layout import build_lane_matrix, window_min_cols_packed, windowed_sum, windowed_xor
+
+INVALID = int(_INVALID_NP)
+TOP16 = 0xFFFF_0000
+MASK32 = 0xFFFF_FFFF
+
+MODE_MINIMIZERS = "minimizers"
+MODE_SUPERKMERS = "superkmers"
+MODE_CLOSED_SYNCMERS = "closed_syncmers"
+MODE_OPEN_SYNCMERS = "open_syncmers"
+
+# Lane geometry: C owned windows per row (halo overhead (l - 1) / C).
+DEFAULT_C = 4096
+
+
+def _rotl(x: torch.Tensor, r) -> torch.Tensor:
+    """Rotate-left of u32 values held in int64, by r in 0..31 (int or
+    tensor). x >> 32 is 0 for x < 2^32, so r = 0 needs no special case."""
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def _local_pos(R: int, S: int, C: int, device) -> torch.Tensor:
+    """(R, S) int64 grid of chunk-local positions r * C + j."""
+    r = torch.arange(R, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(S, dtype=torch.int64, device=device)[None, :]
+    return r * C + j
+
+
+def unpack_2bit(words: torch.Tensor, n: int) -> torch.Tensor:
+    """uint8 codes of the first n bases of a 2-bit byte stream."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=words.device)
+    return ((words[:, None] >> shifts) & 3).reshape(-1)[:n]
+
+
+def nt_like_kmer_hashes_2d(vals, comp_vals, k: int, rot_offset: int, canonical: bool, C: int):
+    """XOR-rolling k-mer hashes on the lane matrix.
+
+    vals / comp_vals: (R, S) int64 per-position table values of the code
+    and of its complement. Returns (R, S - k + 1) int64 u32 hashes of the
+    k-mers starting at each local position (XOR the reverse-complement
+    k-mer's hash when canonical).
+    """
+    R, S = vals.shape
+    p = _local_pos(R, S, C, vals.device)
+    u = _rotl(vals, (p + rot_offset) % 32)
+    X = windowed_xor(u, k)
+    i = _local_pos(R, S - k + 1, C, vals.device) % 32
+    h = _rotl(X, (32 - i) % 32)
+    if canonical:
+        # char at local pos p contributes rotl(T[comp(s[p])], (i + k - 1 - p) + off)
+        ur = _rotl(comp_vals, (k - 1 + rot_offset - p) % 32)
+        h = h ^ _rotl(windowed_xor(ur, k), i)
+    return h
+
+
+def kmer_hashes_2d(M: torch.Tensor, table: torch.Tensor, k: int, rot_offset: int,
+                   canonical: bool, C: int) -> torch.Tensor:
+    """nt k-mer hashes of the (R, S) code matrix M; table is the hasher's
+    int64 table tensor (convert.hasher_tensors)."""
+    c = M.to(torch.int64) & 3
+    vals = table[c]
+    comp_vals = table[c ^ 2] if canonical else None
+    return nt_like_kmer_hashes_2d(vals, comp_vals, k, rot_offset, canonical, C)
+
+
+def window_lr_min_2d(hv: torch.Tensor, w: int, C: int, want_right: bool):
+    """Per-row leftmost (and rightmost) sliding-window minimum positions
+    r * C + column of the TOP16-masked hashes hv (R, C + w - 1)."""
+    R = hv.shape[0]
+    rowbase = torch.arange(R, dtype=torch.int64, device=hv.device)[:, None] * C
+    lpos = rowbase + window_min_cols_packed(hv, w, right_tie=False)
+    rpos = rowbase + window_min_cols_packed(hv, w, right_tie=True) if want_right else None
+    return lpos, rpos
+
+
+def windowed_counts_2d(bits: torch.Tensor, l: int) -> torch.Tensor:
+    """Windowed sums of 0/1 over length-l windows per row: (R, S - l + 1)."""
+    return windowed_sum(bits, l)
+
+
+def lane_geometry(n: int, l: int, C: int = DEFAULT_C) -> tuple[int, int]:
+    """(C, R): C owned windows per row, R rows."""
+    nw = max(n - l + 1, 1)
+    if nw < C:
+        return max(16, 1 << (nw - 1).bit_length()), 1
+    return C, -(-nw // C)
+
+
+def flat_length(C: int, R: int, l: int) -> int:
+    """Padded char count the lane matrix build requires."""
+    halo = l - 1
+    return (R + (-(-halo // C) if halo else 0)) * C
+
+
+def selected_window_stream_2d(codes, n, k, w, table, rot_offset, canonical, C, R):
+    """Per-window selected minimizer positions for one chunk.
+
+    codes: uint8 tensor padded to flat_length(C, R, l). Returns
+    (sel (R * C,) int64 positions | INVALID, valid (R * C,) bool).
+    """
+    l = k + w - 1
+    S = C + l - 1
+    M = build_lane_matrix(codes, R, C, S)
+    h = kmer_hashes_2d(M, table, k, rot_offset, canonical, C)  # (R, C + w - 1)
+    hv = h & TOP16
+    kpos = _local_pos(R, C + w - 1, C, codes.device)
+    hv = torch.where(kpos <= n - k, hv, INVALID)  # k-mers past the end never win
+    lpos, rpos = window_lr_min_2d(hv, w, C, want_right=canonical)
+    if canonical:
+        cnt = windowed_counts_2d((M >> 1) & 1, l)  # (R, C)
+        sel = torch.where(2 * cnt > l, lpos, rpos)
+    else:
+        sel = lpos
+    valid = (_local_pos(R, C, C, codes.device) <= n - l).reshape(R * C)
+    sel = torch.where(valid, sel.reshape(R * C), INVALID)
+    return sel, valid
+
+
+def kept_windows(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
+                 rot_offset: int, canonical: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sel, keep) of the n - l + 1 windows of the first n bases of the
+    2-bit byte stream `words`: the selected position (int64) and the dedup
+    mask (counterpart of the reference's `_pipeline_chunk_rows` before
+    compaction)."""
+    l = k + w - 1
+    if canonical and l % 2 == 0:
+        raise ValueError(f"window length l={l} must be odd to determine strand")
+    nw = max(n - l + 1, 0)
+    C, R = lane_geometry(n, l)
+    codes = torch.zeros(flat_length(C, R, l), dtype=torch.uint8, device=words.device)
+    codes[:n] = unpack_2bit(words, n)
+    sel, valid = selected_window_stream_2d(codes, n, k, w, table.to(words.device), rot_offset,
+                                           canonical, C, R)
+    prev = torch.cat([sel.new_full((1,), INVALID), sel[:-1]])
+    keep = valid & (sel != prev)
+    return sel[:nw], keep[:nw]
+
+
+def run_pipeline(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
+                 rot_offset: int, canonical: bool) -> torch.Tensor:
+    """Minimizer positions (int32, on words.device) of the first n bases of
+    the 2-bit byte stream `words`, with the nt table tensor `table`."""
+    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical)
+    return sel[keep].to(torch.int32)
+
+
+# Plain versions of the three CUDA kernels (csrc/minimizers.cu), one each,
+# with the kernels' inputs and outputs. Chained, they give run_pipeline.
+
+def minimizer_tiles_plain(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
+                          rot_offset: int, canonical: bool, tile: int):
+    """(scratch, counts): tile t's kept positions, in window order, in
+    scratch[t * tile : t * tile + counts[t]] (int32; the rest of scratch is
+    0 here and undefined in the kernel), and counts (int32, one per tile of
+    `tile` windows)."""
+    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical)
+    ntiles = -(-sel.numel() // tile)
+    keep2 = torch.zeros(ntiles * tile, dtype=torch.bool, device=words.device)
+    keep2[:keep.numel()] = keep
+    keep2 = keep2.view(ntiles, tile)
+    rows, cols = keep2.nonzero(as_tuple=True)
+    slots = (keep2.cumsum(1) - 1)[rows, cols]
+    scratch = torch.zeros(ntiles, tile, dtype=torch.int32, device=words.device)
+    scratch[rows, slots] = sel[keep].to(torch.int32)
+    return scratch.view(-1), keep2.sum(1, dtype=torch.int32)
+
+
+def tile_offsets_plain(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive scan of counts with the total behind it: (ntiles + 1,) int32."""
+    return torch.cat([counts.new_zeros(1), counts.cumsum(0, dtype=torch.int32)])
+
+
+def tile_append_plain(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor,
+                      total: int, tile: int) -> torch.Tensor:
+    """out[offsets[t] + i] = scratch[t * tile + i] for i < counts[t]; (total,) int32."""
+    live = torch.arange(tile, device=scratch.device) < counts[:, None]
+    rows, cols = live.nonzero(as_tuple=True)
+    out = torch.zeros(total, dtype=torch.int32, device=scratch.device)
+    out[offsets[rows].long() + cols] = scratch.view(-1, tile)[rows, cols]
+    return out
