@@ -1,5 +1,5 @@
-"""What the port carries across from the reference: the hasher's state and
-the 2-bit sequence, as tensors on one `torch.device`.
+"""What the port carries across from the reference: the hasher's state, the
+2-bit sequence and its ambiguity mask, as tensors on one `torch.device`.
 
 `hasher_tensors` is the counterpart of `simd_minimizers_tpu.ops.pipeline.
 hasher_jit_args` (which lives in a JAX module, so the port keeps its own
@@ -42,3 +42,19 @@ def packed_words(seq, device: torch.device | str) -> torch.Tensor:
     else:
         data = native.pack_2bit(seq.codes())
     return torch.from_numpy(np.ascontiguousarray(data)).to(device)
+
+
+def ambiguity_plane(ambiguous, n: int, device: torch.device | str) -> torch.Tensor:
+    """A per-base ambiguity mask (`PackedNSeqVec.ambiguous`, or a caller's
+    bool or uint8 array of n flags, nonzero = ambiguous) as a 1-bit plane
+    in a uint8 tensor on `device`: base i at bit i % 8 of byte i // 8, the
+    bits past n zero. The counterpart of the JAX package's packing of the
+    ambiguity plane (simd_minimizers_tpu/ops/fused.py `_fused_launch`); an
+    eighth of the mask's bytes cross the bus."""
+    device = require_cuda(device)
+    mask = np.asarray(ambiguous)
+    if mask.dtype not in (np.bool_, np.uint8):
+        raise TypeError(f"the ambiguity mask must be bool or uint8, got {mask.dtype}")
+    if mask.shape != (n,):
+        raise ValueError(f"the ambiguity mask has shape {mask.shape}, the sequence {n} bases")
+    return torch.from_numpy(np.packbits(mask, bitorder="little")).to(device)

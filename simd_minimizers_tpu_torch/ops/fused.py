@@ -10,6 +10,9 @@ counterpart here.
 `fused_sketch` chains three wrappers, one per kernel: `minimizer_tiles`,
 `tile_offsets` and `tile_append`. On a CUDA tensor each launches its kernel
 or raises; on a CPU tensor each runs its plain version (`ops/pipeline.py`).
+`minimizer_tiles` has one kernel instance per strand, mode family
+(minimizers, super-k-mers, syncmers) and ambiguity plane (none for
+super-k-mers), each with its own count in `LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -24,26 +27,53 @@ TILE = 4096  # windows per thread block; csrc/minimizers.cu TILE
 _SMEM_MAX = 232448 - 64
 _KEY_COLUMNS = 1 << 16  # the packed (top16 | column) key keeps 16 column bits
 
-# Launches per kernel, counted where each is launched (CUDA tensors only).
-LAUNCHES = {"minimizer_tiles<canonical>": 0, "minimizer_tiles<forward>": 0,
-            "tile_offsets": 0, "tile_append": 0}
+# csrc/minimizers.cu MINIMIZERS, SUPERKMERS, SYNCMERS: the kernel's mode
+_KERNEL_MODE = {pipeline.MODE_MINIMIZERS: 0, pipeline.MODE_SUPERKMERS: 1,
+                pipeline.MODE_CLOSED_SYNCMERS: 2, pipeline.MODE_OPEN_SYNCMERS: 2}
+_MODE_TAG = {0: "", 1: ",superkmers", 2: ",syncmers"}
+
+
+def instance_name(canonical: bool, mode: str, ambiguous: bool) -> str:
+    """The minimizer_tiles instance that runs (canonical, mode, ambiguity
+    plane), as it is named in LAUNCHES."""
+    tag = _MODE_TAG[_KERNEL_MODE[mode]] + (",ambiguous" if ambiguous else "")
+    return f"minimizer_tiles<{'canonical' if canonical else 'forward'}{tag}>"
+
+
+# Launches per kernel instance, counted where each is launched (CUDA tensors
+# only). Every instance csrc/minimizers.cu builds (tiles_instance) has an
+# entry: super-k-mers have none with an ambiguity plane.
+LAUNCHES = {instance_name(c, m, a): 0
+            for m, a in [(pipeline.MODE_MINIMIZERS, False), (pipeline.MODE_MINIMIZERS, True),
+                         (pipeline.MODE_SUPERKMERS, False),
+                         (pipeline.MODE_CLOSED_SYNCMERS, False),
+                         (pipeline.MODE_CLOSED_SYNCMERS, True)]
+            for c in (True, False)}
+LAUNCHES.update({"tile_offsets": 0, "tile_append": 0})
 
 _ready_devices: set[int] = set()
 
 
-def _tile_smem_bytes(k: int, w: int, canonical: bool) -> int:
-    """Mirror of csrc/minimizers.cu tile_smem_bytes."""
+def _tile_smem_bytes(k: int, w: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
+                     ambiguous: bool = False) -> int:
+    """Mirror of csrc/minimizers.cu tile_smem_bytes: the tile's chars, its
+    keys (whose space also stages one TILE-word plane per output plane) and,
+    with an ambiguity plane, the tile's ambiguity bits in 32-bit words."""
     l = k + w - 1
     chars = (TILE + l + 6) // 4 * 4
-    return (chars + 15) // 16 * 16 + (2 if canonical else 1) * (TILE + w) * 4
+    keys = max((2 if canonical else 1) * (TILE + w),
+               (2 if mode == pipeline.MODE_SUPERKMERS else 1) * TILE)
+    amb = (TILE + l + 62) // 32 * 4 if ambiguous else 0
+    return (chars + 15) // 16 * 16 + 4 * keys + amb
 
 
-def fused_supported(k: int, w: int, canonical: bool = True) -> bool:
+def fused_supported(k: int, w: int, canonical: bool = True, mode: str = pipeline.MODE_MINIMIZERS,
+                    ambiguous: bool = False) -> bool:
     """Whether the kernel's geometry covers (k, w): every k-mer column of a
-    tile (TILE + w of them) fits the key's 16 bits, and the tile's chars and
-    keys fit one block's shared memory."""
+    tile (TILE + w of them) fits the key's 16 bits, and the tile's chars,
+    keys and ambiguity bits fit one block's shared memory."""
     return (k >= 1 and w >= 1 and TILE + w <= _KEY_COLUMNS
-            and _tile_smem_bytes(k, w, canonical) <= _SMEM_MAX)
+            and _tile_smem_bytes(k, w, canonical, mode, ambiguous) <= _SMEM_MAX)
 
 
 def _check(err: int, what: str) -> None:
@@ -52,8 +82,8 @@ def _check(err: int, what: str) -> None:
 
 
 def _library(device: torch.device):
-    """The kernel library, set up once per card (TILE agreement, the
-    kernels' shared-memory limit)."""
+    """The kernel library, set up once per card (TILE agreement, every
+    minimizer_tiles instance's shared-memory limit)."""
     lib = _build.library()
     if device.index not in _ready_devices:
         if lib.smt_tile_windows() != TILE:
@@ -76,43 +106,61 @@ def _require_int32(*tensors: torch.Tensor) -> None:
 
 
 def minimizer_tiles(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
-                    rot_offset: int, canonical: bool):
+                    rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
+                    ambiguous: torch.Tensor | None = None):
     """Kernel 1: (scratch, counts) for the first n bases of the 2-bit byte
     stream `words` (uint8) with the nt table tensor `table` (int64,
-    convert.hasher_tensors). Tile t of TILE windows leaves its kept
-    positions in scratch[t * TILE:][:counts[t]] (int32)."""
+    convert.hasher_tensors) in `mode`, skipping the windows that hold a base
+    flagged in the 1-bit plane `ambiguous` (uint8, convert.ambiguity_plane)
+    if one is given. Tile t of TILE windows leaves its kept values in
+    scratch[..., t * TILE:][:counts[t]] (int32): positions (minimizers),
+    window indices (syncmers), or both as the two rows of a
+    (2, ntiles * TILE) scratch (super-k-mers)."""
     if words.dtype != torch.uint8:
         raise TypeError(f"words must be uint8, got {words.dtype}")
+    if mode not in _KERNEL_MODE:
+        raise ValueError(f"unknown mode {mode!r}")
+    pipeline.assert_no_superkmer_ambiguity(mode, ambiguous is not None)
+    if ambiguous is not None and (ambiguous.dtype != torch.uint8
+                                  or ambiguous.device != words.device):
+        raise ValueError("ambiguous must be a uint8 tensor on the device of words")
     if n >= 1 << 31:
         raise NotImplementedError("inputs of 2^31 bases or more (sketch_long) are ROADMAP A4")
     l = k + w - 1
     if canonical and l % 2 == 0:
         raise ValueError(f"window length l={l} must be odd to determine strand")
-    if not fused_supported(k, w, canonical):
+    if not fused_supported(k, w, canonical, mode, ambiguous is not None):
         raise NotImplementedError(
             f"k={k}, w={w} is beyond the kernel's geometry (fused_supported); "
             "wider geometry is ROADMAP A3")
     if _device_kind(words) == "cpu":
-        return pipeline.minimizer_tiles_plain(words, n, k, w, table, rot_offset, canonical, TILE)
+        return pipeline.minimizer_tiles_plain(words, n, k, w, table, rot_offset, canonical, TILE,
+                                              mode, ambiguous)
     if not (words.is_contiguous() and table.is_contiguous()):
         raise ValueError("words and table must be contiguous")
     if words.numel() * 4 < n or table.numel() != 4 or table.dtype != torch.int64:
         raise ValueError("words must hold n bases and table four int64 entries")
     if table.device != words.device:
         raise ValueError("table and words must be on one device")
+    if ambiguous is not None and (not ambiguous.is_contiguous() or ambiguous.numel() * 8 < n):
+        raise ValueError("ambiguous must be contiguous and hold a bit for each of the n bases")
     dev = words.device
     ntiles = -(-max(n - l + 1, 0) // TILE)
-    scratch = torch.empty(ntiles * TILE, dtype=torch.int32, device=dev)
+    planes = 2 if mode == pipeline.MODE_SUPERKMERS else 1
+    scratch = torch.empty(planes, ntiles * TILE, dtype=torch.int32, device=dev)
+    scratch = scratch if planes == 2 else scratch[0]
     counts = torch.empty(ntiles, dtype=torch.int32, device=dev)
     if ntiles == 0:  # no window: nothing to launch
         return scratch, counts
     lib = _library(dev)
-    _check(lib.smt_minimizer_tiles(dev.index, words.data_ptr(), words.numel(), n, k, w,
-                                   int(canonical), table.data_ptr(), rot_offset,
-                                   scratch.data_ptr(), counts.data_ptr(), ntiles,
-                                   torch.cuda.current_stream(dev).cuda_stream),
-           "minimizer_tiles")
-    LAUNCHES["minimizer_tiles<canonical>" if canonical else "minimizer_tiles<forward>"] += 1
+    lo, hi = pipeline.syncmer_offsets(mode, w)
+    _check(lib.smt_minimizer_tiles(
+        dev.index, words.data_ptr(), words.numel(), n, k, w, int(canonical), _KERNEL_MODE[mode],
+        table.data_ptr(), rot_offset, None if ambiguous is None else ambiguous.data_ptr(),
+        0 if ambiguous is None else ambiguous.numel(), lo, hi, scratch.data_ptr(),
+        counts.data_ptr(), ntiles, torch.cuda.current_stream(dev).cuda_stream),
+        "minimizer_tiles")
+    LAUNCHES[instance_name(canonical, mode, ambiguous is not None)] += 1
     return scratch, counts
 
 
@@ -137,18 +185,22 @@ def tile_offsets(counts: torch.Tensor) -> torch.Tensor:
 
 def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor,
                 total: int) -> torch.Tensor:
-    """Kernel 3: each tile's run of scratch at its offset; (total,) int32."""
+    """Kernel 3: each tile's run of scratch at its offset: (total,) int32,
+    or (2, total) for the two-plane scratch of super-k-mers, both planes
+    with the one set of offsets."""
     _require_int32(scratch, counts, offsets)
     if _device_kind(scratch) == "cpu":
         return pipeline.tile_append_plain(scratch, counts, offsets, total, TILE)
-    if scratch.numel() != counts.numel() * TILE or offsets.numel() != counts.numel() + 1:
+    if (scratch.dim() not in (1, 2) or scratch.shape[-1] != counts.numel() * TILE
+            or offsets.numel() != counts.numel() + 1):
         raise ValueError("scratch, counts and offsets disagree on the tile count")
-    out = torch.empty(total, dtype=torch.int32, device=scratch.device)
+    planes = scratch.shape[0] if scratch.dim() == 2 else 1
+    out = torch.empty(*scratch.shape[:-1], total, dtype=torch.int32, device=scratch.device)
     if total == 0:
         return out
     lib = _library(scratch.device)
     _check(lib.smt_tile_append(scratch.device.index, scratch.data_ptr(), counts.data_ptr(),
-                               offsets.data_ptr(), counts.numel(), out.data_ptr(),
+                               offsets.data_ptr(), counts.numel(), planes, out.data_ptr(),
                                torch.cuda.current_stream(scratch.device).cuda_stream),
            "tile_append")
     LAUNCHES["tile_append"] += 1
@@ -156,16 +208,22 @@ def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tens
 
 
 def fused_sketch(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
-                 rot_offset: int, canonical: bool) -> torch.Tensor:
-    """Minimizer positions (int32, on words.device) of the first n bases of
-    the 2-bit byte stream `words` (uint8) with the nt table tensor `table`
-    (int64, convert.hasher_tensors).
+                 rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
+                 ambiguous: torch.Tensor | None = None):
+    """int32 positions (window indices for syncmers), on words.device, of
+    the first n bases of the 2-bit byte stream `words` (uint8) with the nt
+    table tensor `table` (int64, convert.hasher_tensors), skipping the
+    windows that hold a base flagged in the 1-bit plane `ambiguous`; for
+    super-k-mers (positions, first-window indices) (counterpart of
+    `_fused_harvest`).
 
     A CUDA tensor goes through the three kernels, a CPU tensor through their
     plain versions; any other device raises. Fewer than l = k + w - 1 bases
     give an empty result without a launch.
     """
-    scratch, counts = minimizer_tiles(words, n, k, w, table, rot_offset, canonical)
+    scratch, counts = minimizer_tiles(words, n, k, w, table, rot_offset, canonical, mode,
+                                      ambiguous)
     offsets = tile_offsets(counts)
     total = int(offsets[-1])  # the one 4-byte device-to-host copy
-    return tile_append(scratch, counts, offsets, total)
+    out = tile_append(scratch, counts, offsets, total)
+    return (out[0], out[1]) if mode == pipeline.MODE_SUPERKMERS else out

@@ -1,15 +1,17 @@
 """The plain PyTorch version of the minimizer kernel.
 
 Counterpart of `simd_minimizers_tpu/ops/pipeline.py` for the port's slice
-(nt hasher, 2-bit DNA, minimizer mode): the same lane matrix with l - 1
-char halos, doubling folds for the k-mer hash and the T/G count, packed
-(top16 | column) sliding minima, strand blend, and adjacent dedup. It
-compacts with a mask select instead of the TPU butterfly. It runs on any
-device; the CPU tests use it, and on the card it is what the CUDA kernel
-(`ops/fused.py`) is held against.
+(nt hasher, 2-bit DNA; minimizers, super-k-mers, closed and open syncmers,
+with or without an ambiguity mask): the same lane matrix with l - 1 char
+halos, doubling folds for the k-mer hash, the T/G count and the ambiguous
+count, packed (top16 | column) sliding minima, strand blend, SKIPPED
+windows, and the keep rule of each mode. It compacts with a mask select
+instead of the TPU butterfly. It runs on any device; the CPU tests use it,
+and on the card it is what the CUDA kernel (`ops/fused.py`) is held
+against.
 
-u32 values ride in int64 tensors (see ops/layout.py); positions come out
-as int32 (n < 2^31 per call).
+u32 values ride in int64 tensors (see ops/layout.py); positions and window
+indices come out as int32 (n < 2^31 per call).
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ from __future__ import annotations
 import torch
 
 from simd_minimizers_tpu.utils.bits import INVALID as _INVALID_NP
+from simd_minimizers_tpu.utils.bits import SKIPPED as _SKIPPED_NP
 
 from .layout import build_lane_matrix, window_min_cols_packed, windowed_sum, windowed_xor
 
 INVALID = int(_INVALID_NP)
+SKIPPED = int(_SKIPPED_NP)  # the sel of a window that holds an ambiguous base
 TOP16 = 0xFFFF_0000
 MASK32 = 0xFFFF_FFFF
 
@@ -28,6 +32,24 @@ MODE_MINIMIZERS = "minimizers"
 MODE_SUPERKMERS = "superkmers"
 MODE_CLOSED_SYNCMERS = "closed_syncmers"
 MODE_OPEN_SYNCMERS = "open_syncmers"
+MODES = (MODE_MINIMIZERS, MODE_SUPERKMERS, MODE_CLOSED_SYNCMERS, MODE_OPEN_SYNCMERS)
+SYNCMER_MODES = (MODE_CLOSED_SYNCMERS, MODE_OPEN_SYNCMERS)
+
+
+def assert_no_superkmer_ambiguity(mode: str, has_ambiguity: bool) -> None:
+    """Super-k-mers with an ambiguity mask cannot be expressed in the
+    reference; the port rejects the combination as the JAX package does
+    (copy of `simd_minimizers_tpu.ops.pipeline.assert_no_superkmer_ambiguity`,
+    raising its AssertionError even under `python -O`)."""
+    if mode == MODE_SUPERKMERS and has_ambiguity:
+        raise AssertionError("super-k-mers cannot be combined with an ambiguity mask "
+                             "(unrepresentable in the reference, src/lib.rs:498-503)")
+
+
+def syncmer_offsets(mode: str, w: int) -> tuple[int, int]:
+    """(lo, hi): a syncmer window gw is kept where its sel is gw + lo or
+    gw + hi (closed: the first or last k-mer; open: the middle one)."""
+    return (0, w - 1) if mode == MODE_CLOSED_SYNCMERS else (w // 2, w // 2)
 
 # Lane geometry: C owned windows per row (halo overhead (l - 1) / C).
 DEFAULT_C = 4096
@@ -50,6 +72,13 @@ def unpack_2bit(words: torch.Tensor, n: int) -> torch.Tensor:
     """uint8 codes of the first n bases of a 2-bit byte stream."""
     shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=words.device)
     return ((words[:, None] >> shifts) & 3).reshape(-1)[:n]
+
+
+def unpack_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """uint8 0/1 flags of the first n bases of a 1-bit plane (base i at bit
+    i % 8 of byte i // 8; convert.ambiguity_plane)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return ((bits[:, None] >> shifts) & 1).reshape(-1)[:n]
 
 
 def nt_like_kmer_hashes_2d(vals, comp_vals, k: int, rot_offset: int, canonical: bool, C: int):
@@ -112,11 +141,14 @@ def flat_length(C: int, R: int, l: int) -> int:
     return (R + (-(-halo // C) if halo else 0)) * C
 
 
-def selected_window_stream_2d(codes, n, k, w, table, rot_offset, canonical, C, R):
+def selected_window_stream_2d(codes, n, k, w, table, rot_offset, canonical, C, R,
+                              ambiguous=None):
     """Per-window selected minimizer positions for one chunk.
 
-    codes: uint8 tensor padded to flat_length(C, R, l). Returns
-    (sel (R * C,) int64 positions | INVALID, valid (R * C,) bool).
+    codes (and ambiguous, 0/1 flags per base, if given): uint8 tensors
+    padded to flat_length(C, R, l). Returns (sel (R * C,) int64 positions |
+    SKIPPED | INVALID, valid (R * C,) bool). SKIPPED marks a window that
+    holds an ambiguous base; a window past the end is INVALID even then.
     """
     l = k + w - 1
     S = C + l - 1
@@ -131,58 +163,96 @@ def selected_window_stream_2d(codes, n, k, w, table, rot_offset, canonical, C, R
         sel = torch.where(2 * cnt > l, lpos, rpos)
     else:
         sel = lpos
+    if ambiguous is not None:
+        acnt = windowed_counts_2d(build_lane_matrix(ambiguous, R, C, S), l)
+        sel = torch.where(acnt > 0, SKIPPED, sel)
     valid = (_local_pos(R, C, C, codes.device) <= n - l).reshape(R * C)
     sel = torch.where(valid, sel.reshape(R * C), INVALID)
     return sel, valid
 
 
 def kept_windows(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
-                 rot_offset: int, canonical: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                 rot_offset: int, canonical: bool, mode: str = MODE_MINIMIZERS,
+                 ambiguous: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(sel, keep) of the n - l + 1 windows of the first n bases of the
-    2-bit byte stream `words`: the selected position (int64) and the dedup
-    mask (counterpart of the reference's `_pipeline_chunk_rows` before
-    compaction)."""
+    2-bit byte stream `words`: the raw selected stream (int64 positions,
+    SKIPPED where the window holds a base flagged in the 1-bit plane
+    `ambiguous`) and the keep mask of `mode` (counterpart of the
+    reference's `_pipeline_chunk_rows` before compaction). Minimizers and
+    super-k-mers dedup adjacent windows on the raw stream and drop SKIPPED
+    after it; syncmers keep the windows whose sel is a syncmer k-mer."""
     l = k + w - 1
     if canonical and l % 2 == 0:
         raise ValueError(f"window length l={l} must be odd to determine strand")
     nw = max(n - l + 1, 0)
     C, R = lane_geometry(n, l)
-    codes = torch.zeros(flat_length(C, R, l), dtype=torch.uint8, device=words.device)
+    flat = flat_length(C, R, l)
+    codes = torch.zeros(flat, dtype=torch.uint8, device=words.device)
     codes[:n] = unpack_2bit(words, n)
+    amb = None
+    if ambiguous is not None:
+        amb = torch.zeros(flat, dtype=torch.uint8, device=words.device)
+        amb[:n] = unpack_bits(ambiguous, n)
     sel, valid = selected_window_stream_2d(codes, n, k, w, table.to(words.device), rot_offset,
-                                           canonical, C, R)
-    prev = torch.cat([sel.new_full((1,), INVALID), sel[:-1]])
-    keep = valid & (sel != prev)
+                                           canonical, C, R, amb)
+    if mode in SYNCMER_MODES:
+        gw = torch.arange(sel.numel(), dtype=torch.int64, device=sel.device)
+        lo, hi = syncmer_offsets(mode, w)
+        keep = valid & ((sel == gw + lo) | (sel == gw + hi)) & (sel != SKIPPED)
+    else:
+        prev = torch.cat([sel.new_full((1,), INVALID), sel[:-1]])
+        keep = valid & (sel != prev)
+        if ambiguous is not None:
+            keep &= sel != SKIPPED
     return sel[:nw], keep[:nw]
 
 
+def _planes(sel: torch.Tensor, mode: str) -> list[torch.Tensor]:
+    """The values each window contributes, one tensor per output plane:
+    its sel (minimizers), sel and window index (super-k-mers), or its
+    window index (syncmers)."""
+    if mode in SYNCMER_MODES:
+        return [torch.arange(sel.numel(), dtype=torch.int64, device=sel.device)]
+    if mode == MODE_SUPERKMERS:
+        return [sel, torch.arange(sel.numel(), dtype=torch.int64, device=sel.device)]
+    return [sel]
+
+
 def run_pipeline(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
-                 rot_offset: int, canonical: bool) -> torch.Tensor:
-    """Minimizer positions (int32, on words.device) of the first n bases of
-    the 2-bit byte stream `words`, with the nt table tensor `table`."""
-    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical)
-    return sel[keep].to(torch.int32)
+                 rot_offset: int, canonical: bool, mode: str = MODE_MINIMIZERS,
+                 ambiguous: torch.Tensor | None = None):
+    """int32 positions (window indices for syncmers), on words.device, of
+    the first n bases of the 2-bit byte stream `words`, with the nt table
+    tensor `table`; for super-k-mers (positions, first-window indices)."""
+    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical, mode, ambiguous)
+    out = [p[keep].to(torch.int32) for p in _planes(sel, mode)]
+    return tuple(out) if mode == MODE_SUPERKMERS else out[0]
 
 
 # Plain versions of the three CUDA kernels (csrc/minimizers.cu), one each,
 # with the kernels' inputs and outputs. Chained, they give run_pipeline.
 
 def minimizer_tiles_plain(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
-                          rot_offset: int, canonical: bool, tile: int):
-    """(scratch, counts): tile t's kept positions, in window order, in
-    scratch[t * tile : t * tile + counts[t]] (int32; the rest of scratch is
-    0 here and undefined in the kernel), and counts (int32, one per tile of
-    `tile` windows)."""
-    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical)
+                          rot_offset: int, canonical: bool, tile: int,
+                          mode: str = MODE_MINIMIZERS, ambiguous: torch.Tensor | None = None):
+    """(scratch, counts): tile t's kept values, in window order, in
+    scratch[..., t * tile : t * tile + counts[t]] (int32; the rest of
+    scratch is 0 here and undefined in the kernel), and counts (int32, one
+    per tile of `tile` windows). scratch is (ntiles * tile,), or
+    (2, ntiles * tile) for super-k-mers: positions, then window indices."""
+    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical, mode, ambiguous)
     ntiles = -(-sel.numel() // tile)
     keep2 = torch.zeros(ntiles * tile, dtype=torch.bool, device=words.device)
     keep2[:keep.numel()] = keep
     keep2 = keep2.view(ntiles, tile)
     rows, cols = keep2.nonzero(as_tuple=True)
     slots = (keep2.cumsum(1) - 1)[rows, cols]
-    scratch = torch.zeros(ntiles, tile, dtype=torch.int32, device=words.device)
-    scratch[rows, slots] = sel[keep].to(torch.int32)
-    return scratch.view(-1), keep2.sum(1, dtype=torch.int32)
+    planes = _planes(sel, mode)
+    scratch = torch.zeros(len(planes), ntiles, tile, dtype=torch.int32, device=words.device)
+    for p, values in enumerate(planes):
+        scratch[p, rows, slots] = values[keep].to(torch.int32)
+    scratch = scratch.view(len(planes), ntiles * tile)
+    return (scratch if mode == MODE_SUPERKMERS else scratch[0]), keep2.sum(1, dtype=torch.int32)
 
 
 def tile_offsets_plain(counts: torch.Tensor) -> torch.Tensor:
@@ -192,9 +262,11 @@ def tile_offsets_plain(counts: torch.Tensor) -> torch.Tensor:
 
 def tile_append_plain(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor,
                       total: int, tile: int) -> torch.Tensor:
-    """out[offsets[t] + i] = scratch[t * tile + i] for i < counts[t]; (total,) int32."""
+    """out[..., offsets[t] + i] = scratch[..., t * tile + i] for i < counts[t]:
+    (total,) int32, or (2, total) for a two-plane scratch."""
     live = torch.arange(tile, device=scratch.device) < counts[:, None]
     rows, cols = live.nonzero(as_tuple=True)
-    out = torch.zeros(total, dtype=torch.int32, device=scratch.device)
-    out[offsets[rows].long() + cols] = scratch.view(-1, tile)[rows, cols]
-    return out
+    planes = scratch.view(scratch.shape[0] if scratch.dim() == 2 else 1, counts.numel(), tile)
+    out = torch.zeros(planes.shape[0], total, dtype=torch.int32, device=scratch.device)
+    out[:, offsets[rows].long() + cols] = planes[:, rows, cols]
+    return out.view(*scratch.shape[:-1], total)

@@ -85,12 +85,22 @@ def _raises(fn, exc=NotImplementedError, match="ROADMAP"):
 
 
 def test_out_of_slice_modes_raise():
+    """Text, the mul and antilex hashers, batches and w beyond the kernel's
+    geometry are not ported and raise; super-k-mers, syncmers and
+    skip-ambiguous windows, refused until they were ported, now run on the
+    CPU and agree with the oracle."""
     ps = PackedSeqVec.from_ascii(GOLD * 4)
-    _raises(lambda: smt.canonical_minimizers(5, 7).super_kmers().run(ps, device="cpu"))
+    b = smt.canonical_minimizers(5, 7).super_kmers()
+    out, want = b.run(ps, device="cpu"), b.run_scalar(ps)
+    np.testing.assert_array_equal(out.positions, want.positions)
+    np.testing.assert_array_equal(out.superkmer_indices, want.superkmer_indices)
     for syncmer in (1, 2):
-        _raises(lambda: smt.Builder(5, 7, False, syncmer=syncmer).run(ps, device="cpu"))
+        b = smt.Builder(5, 7, False, syncmer=syncmer)
+        np.testing.assert_array_equal(b.run_once(ps, device="cpu"), b.run_scalar_once(ps))
     nseq = PackedNSeqVec.from_ascii(GOLD.replace(b"T", b"N", 1))
-    _raises(lambda: smt.canonical_minimizers(5, 7).run_skip_ambiguous_windows(nseq))
+    b = smt.canonical_minimizers(5, 7)
+    np.testing.assert_array_equal(b.run_skip_ambiguous_windows_once(nseq, device="cpu"),
+                                  b.run_scalar(nseq.seq, ambiguous=nseq.ambiguous).positions)
     _raises(lambda: smt.minimizers(5, 7).run(b"any text at all!", device="cpu"))
     _raises(lambda: smt.minimizers(5, 7).run(GenericSeq(GOLD), device="cpu"))
     for h in (MulHasher(5), AntiLexHasher(5)):
@@ -100,8 +110,55 @@ def test_out_of_slice_modes_raise():
 
 
 def test_even_l_canonical_raises():
+    # the JAX builder's exception, raised by the same check
     ps = PackedSeqVec.from_ascii(GOLD)
-    _raises(lambda: smt.canonical_minimizers(5, 6).run(ps, device="cpu"), ValueError, "odd")
+    _raises(lambda: smt.canonical_minimizers(5, 6).run(ps, device="cpu"), AssertionError, "odd")
+    _raises(lambda: sm.canonical_minimizers(5, 6).run(ps), AssertionError, "odd")
+
+
+@pytest.mark.parametrize("k,w,n", [(5, 7, 200), (21, 11, 9000)])
+def test_run_skip_ambiguous_windows_on_cpu(k, w, n):
+    """The port's own entry point takes a device (the inherited one ran on
+    the default CUDA device) and equals the JAX builder's."""
+    rng = np.random.default_rng(n)
+    raw = np.frombuffer(b"ACGTN", np.uint8)[rng.choice(5, n, p=[.24, .24, .24, .24, .04])]
+    nseq = PackedNSeqVec.from_ascii(raw.tobytes())
+    b, ref = smt.canonical_minimizers(k, w), sm.canonical_minimizers(k, w)
+    out = b.run_skip_ambiguous_windows(nseq, device="cpu")
+    want = ref.run_skip_ambiguous_windows(nseq)
+    assert isinstance(out, smt.Output) and out.seq is nseq.seq
+    np.testing.assert_array_equal(out.positions, want.positions)
+    np.testing.assert_array_equal(out.values_u64(), want.values_u64())
+    np.testing.assert_array_equal(b.run_skip_ambiguous_windows_once(nseq, device="cpu"),
+                                  ref.run_skip_ambiguous_windows_once(nseq))
+    with pytest.raises(AssertionError, match="canonical"):
+        smt.minimizers(k, w).run_skip_ambiguous_windows(nseq, device="cpu")
+
+
+def test_superkmers_with_ambiguity_raise():
+    """Super-k-mers with an ambiguity mask: the reference cannot express it,
+    and both packages refuse exactly this combination with AssertionError."""
+    ps = PackedSeqVec.from_ascii(GOLD * 4)
+    amb = np.zeros(len(ps), bool)
+    amb[5] = True
+    for pkg in (smt, sm):
+        run = pkg.canonical_minimizers(5, 7).super_kmers().run
+        kw = {"device": "cpu"} if pkg is smt else {}
+        with pytest.raises(AssertionError, match="cannot be combined with an ambiguity mask"):
+            run(ps, ambiguous=amb, **kw)
+    from simd_minimizers_tpu_torch import convert
+    from simd_minimizers_tpu_torch.ops import backend, pipeline
+
+    words = convert.packed_words(ps, "cpu")
+    plane = convert.ambiguity_plane(amb, len(ps), "cpu")
+    h = NtHasher(5, canonical=True)
+    with pytest.raises(AssertionError, match="cannot be combined with an ambiguity mask"):
+        backend.sketch(words, len(ps), 5, 7, h, pipeline.MODE_SUPERKMERS, plane)
+    # the same mask with every other mode, and super-k-mers without it, run
+    for mode in (pipeline.MODE_MINIMIZERS, pipeline.MODE_CLOSED_SYNCMERS,
+                 pipeline.MODE_OPEN_SYNCMERS):
+        backend.sketch(words, len(ps), 5, 7, h, mode, plane)
+    backend.sketch(words, len(ps), 5, 7, h, pipeline.MODE_SUPERKMERS)
 
 
 def test_run_scalar_is_the_oracle():
@@ -117,6 +174,12 @@ def test_imports_without_jax():
         "from simd_minimizers_tpu_torch.utils import device, profiling\n"
         "ps = smt.PackedSeqVec.from_ascii(b'ACGTGCTCAGAGACTCAGAGGA')\n"
         "assert list(smt.canonical_minimizer_positions(ps, 5, 7, device='cpu')) == [0, 7, 9, 15]\n"
+        "out = smt.canonical_minimizers(5, 7).super_kmers().run(ps, device='cpu')\n"
+        "assert list(out.positions) == [0, 7, 9, 15] and out.superkmer_indices.size == 4\n"
+        "nseq = smt.PackedNSeqVec.from_ascii(b'ACGTGCTCAGAGANTCAGAGGA')\n"
+        "b = smt.canonical_minimizers(5, 7)\n"
+        "assert list(b.run_skip_ambiguous_windows_once(nseq, device='cpu')) == list(\n"
+        "    b.run_scalar(nseq.seq, ambiguous=nseq.ambiguous).positions)\n"
         "assert sys.modules['jax'] is None\n"
         "print('ok')\n"
     )

@@ -91,6 +91,16 @@ def test_geometry_gate():
     assert fused.fused_supported(21, 11) and fused.fused_supported(64, 2)
     assert not fused.fused_supported(200_000, 11)
     assert fused._tile_smem_bytes(21, 11, True) == 4144 + 2 * (fused.TILE + 11) * 4
+    # super-k-mers stage two planes of TILE words in the keys' space; an
+    # ambiguity plane adds the tile's bits in 32-bit words
+    skm = pipeline.MODE_SUPERKMERS
+    assert fused._tile_smem_bytes(21, 11, False, skm) == 4144 + 2 * fused.TILE * 4
+    assert fused._tile_smem_bytes(21, 11, True, skm) == fused._tile_smem_bytes(21, 11, True)
+    assert (fused._tile_smem_bytes(21, 11, True, ambiguous=True)
+            == fused._tile_smem_bytes(21, 11, True) + (fused.TILE + 31 + 62) // 32 * 4)
+    assert fused.fused_supported(21, 40_000, False, skm)
+    assert not fused.fused_supported(21, 42_376, False, ambiguous=True)
+    assert fused.fused_supported(21, 42_376, False)
 
 
 @pytest.mark.parametrize("k,w", [(200_001, 11), (21, 43_001)])
@@ -103,9 +113,27 @@ def test_beyond_gate_raises_on_cpu(k, w):
 @pytest.mark.parametrize("mode", [pipeline.MODE_SUPERKMERS, pipeline.MODE_CLOSED_SYNCMERS,
                                   pipeline.MODE_OPEN_SYNCMERS])
 def test_other_modes_raise(mode):
-    words = torch.zeros(100, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        backend.sketch(words, 400, 5, 7, NtHasher(5), mode=mode)
+    """The modes besides minimizers, refused until they were ported, run on
+    the CPU and match the oracle; what the JAX package refuses in them
+    raises its AssertionError: super-k-mers with an ambiguity plane, open
+    syncmers with an even w, a canonical hasher with an even l."""
+    codes = np.random.default_rng(6).integers(0, 4, 400, dtype=np.uint8)
+    words = torch.from_numpy(pack_2bit(codes))
+    h = NtHasher(5)
+    got = backend.sketch(words, 400, 5, 7, h, mode=mode)
+    sel = oracle.selected_stream(codes, 5, 7, h)
+    if mode == pipeline.MODE_SUPERKMERS:
+        for g, want in zip(got, oracle.collect_and_dedup_with_index(sel), strict=True):
+            np.testing.assert_array_equal(g.numpy().astype(np.uint32), want)
+        refused = dict(w=7, hasher=h, ambiguous=torch.zeros(50, dtype=torch.uint8))
+    else:
+        want = oracle.collect_syncmers(sel, 7, mode == pipeline.MODE_OPEN_SYNCMERS)
+        np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+        refused = (dict(w=8, hasher=h) if mode == pipeline.MODE_OPEN_SYNCMERS
+                   else dict(w=8, hasher=NtHasher(5, canonical=True)))
+    with pytest.raises(AssertionError):
+        backend.sketch(words, 400, 5, refused.pop("w"), refused.pop("hasher"), mode=mode,
+                       **refused)
 
 
 def test_other_hasher_raises():
