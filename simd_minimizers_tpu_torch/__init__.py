@@ -1,9 +1,11 @@
 """simd_minimizers_tpu_torch — the PyTorch/CUDA port of simd_minimizers_tpu.
 
 Forward and canonical minimizers, super-k-mers, closed and open syncmers
-and skip-ambiguous windows of 2-bit DNA with the nt hasher, through a
-hand-written Hopper kernel on a CUDA device and its plain PyTorch version
-on the CPU. Bit-identical to the JAX package and its NumPy oracle.
+and skip-ambiguous windows of 2-bit DNA and of general text, with the nt,
+mul and antilex hashers, through a hand-written Hopper kernel on a CUDA
+device and its plain PyTorch version on the CPU. Bit-identical to the JAX
+package and its NumPy oracle; it imports nothing of the JAX package (its
+hashers, sequences, oracle and values are its own copies).
 
 Quick start::
 
@@ -14,10 +16,8 @@ Quick start::
     out = smt.canonical_minimizers(21, 11).run(ps, device="cpu")
     nseq = smt.PackedNSeqVec.from_ascii(b"ACGTNACGT...")
     smt.canonical_minimizers(5, 7).run_skip_ambiguous_windows(nseq, device="cpu")
+    smt.minimizers(7, 5).hasher(smt.MulHasher(7)).run(b"any text", device="cpu")
 """
-
-from simd_minimizers_tpu.hashers import KmerHasher, NtHasher
-from simd_minimizers_tpu.seq.packed import AsciiSeq, PackedNSeqVec, PackedSeq, PackedSeqVec
 
 from .api import (
     Builder,
@@ -31,6 +31,8 @@ from .api import (
     minimizers,
     open_syncmers,
 )
+from .hashers import AntiLexHasher, KmerHasher, MulHasher, NtHasher
+from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, PackedSeqVec
 
 __all__ = [
     "Builder",
@@ -45,8 +47,11 @@ __all__ = [
     "canonical_minimizer_positions",
     "KmerHasher",
     "NtHasher",
+    "MulHasher",
+    "AntiLexHasher",
     "PackedSeq",
     "PackedSeqVec",
     "PackedNSeqVec",
     "AsciiSeq",
+    "GenericSeq",
 ]

@@ -1,15 +1,17 @@
 """Public builder API of the port.
 
-Counterpart of `simd_minimizers_tpu/api.py`: the same builder shape,
+Counterpart of `simd_minimizers_tpu/api.py`, the same builder shape,
 
     out = canonical_minimizers(k, w).super_kmers().run(seq, device="cuda")
     out.positions, out.superkmer_indices, out.values_u64()
+    minimizers(k, w).hasher(MulHasher(k)).run(GenericSeq(text), device="cuda")
     canonical_minimizers(k, w).run_skip_ambiguous_windows(nseq, device="cuda")
 
-`Builder.run` sends the sequence (and its ambiguity mask, as a 1-bit
-plane) to `device` and runs the port's backend (the Hopper kernel on a
-CUDA device, its plain version on the CPU). `run_scalar` is the
-reference's NumPy oracle, inherited unchanged.
+with `Output` and `Builder` of the port's own. `Builder.run` sends the
+sequence (2-bit packed, or the raw bytes of text) and its ambiguity mask,
+as a 1-bit plane, to `device` and runs the port's backend (the Hopper
+kernel on a CUDA device, its plain version on the CPU). `run_scalar` is
+the NumPy oracle (`ops/oracle.py`).
 """
 
 from __future__ import annotations
@@ -19,48 +21,120 @@ import dataclasses
 import numpy as np
 import torch
 
-from simd_minimizers_tpu import api as _ref
-from simd_minimizers_tpu.seq.packed import PackedNSeqVec, as_seq
-
 from . import convert
-from .ops import backend, pipeline
+from .hashers import KmerHasher, NtHasher
+from .ops import backend, oracle, pipeline, values
+from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, as_seq
+
+_SYNCMER_NONE, _SYNCMER_CLOSED, _SYNCMER_OPEN = 0, 1, 2
 
 
 @dataclasses.dataclass
-class Output(_ref.Output):
-    """The reference's `Output`; k-mer values are assembled on the host
-    (device values are ROADMAP A6)."""
+class Output:
+    """Result of a builder run (the `Output` equivalent).
 
-    def _use_device_values(self, max_length: int) -> bool:
-        return False
+    `length` is k for minimizers and k+w-1 for syncmers (the crate's
+    src/lib.rs:439-447). k-mer values are assembled on the host (device
+    values are ROADMAP A6).
+    """
+
+    length: int
+    seq: object
+    positions: np.ndarray
+    superkmer_indices: np.ndarray | None = None
+    canonical: bool = False
+
+    def _codes(self) -> np.ndarray:
+        return self.seq.codes()
+
+    @property
+    def _bits(self) -> int:
+        # 2 bits/char for DNA, 8 for general text (GenericSeq)
+        return getattr(self.seq, "char_bits", 2)
+
+    def values_u64(self) -> np.ndarray:
+        fn = values.canonical_kmer_values_u64 if self.canonical else values.kmer_values_u64
+        return fn(self._codes(), self.positions, self.length, self._bits)
+
+    def values_u128(self) -> list[int]:
+        fn = values.canonical_kmer_values_u128 if self.canonical else values.kmer_values_u128
+        return fn(self._codes(), self.positions, self.length, self._bits)
+
+    def values_u128_limbs(self) -> tuple[np.ndarray, np.ndarray]:
+        """(lo, hi) u64 limb arrays — vectorized u128s for sketch-scale use."""
+        fn = (values.canonical_kmer_values_u128_limbs if self.canonical
+              else values.kmer_values_u128_limbs)
+        return fn(self._codes(), self.positions, self.length, self._bits)
+
+    def pos_and_values_u64(self) -> tuple[np.ndarray, np.ndarray]:
+        return self.positions, self.values_u64()
+
+    def pos_and_values_u128(self) -> tuple[np.ndarray, list[int]]:
+        return self.positions, self.values_u128()
 
 
 @dataclasses.dataclass
-class Builder(_ref.Builder):
-    """The reference's builder with the port's `run`."""
+class Builder:
+    """Type-state builder (the reference's const generics become fields)."""
+
+    k: int
+    w: int
+    canonical: bool
+    syncmer: int = _SYNCMER_NONE
+    _hasher: KmerHasher | None = None
+    _super_kmers: bool = False
+
+    def hasher(self, hasher: KmerHasher) -> "Builder":
+        if not isinstance(hasher, KmerHasher):
+            raise TypeError(f"{type(hasher).__name__} is not a hasher of the port "
+                            "(convert.hasher_from rebuilds one)")
+        return dataclasses.replace(self, _hasher=hasher)
+
+    def super_kmers(self) -> "Builder":
+        assert self.syncmer == _SYNCMER_NONE, "super-kmers are incompatible with syncmers"
+        return dataclasses.replace(self, _super_kmers=True)
+
+    def _resolved_hasher(self) -> KmerHasher:
+        return self._hasher or NtHasher(self.k, canonical=self.canonical)
+
+    @property
+    def _out_length(self) -> int:
+        return self.k + self.w - 1 if self.syncmer != _SYNCMER_NONE else self.k
+
+    @property
+    def _mode(self) -> str:
+        if self.syncmer == _SYNCMER_OPEN:
+            return pipeline.MODE_OPEN_SYNCMERS
+        if self.syncmer == _SYNCMER_CLOSED:
+            return pipeline.MODE_CLOSED_SYNCMERS
+        return pipeline.MODE_SUPERKMERS if self._super_kmers else pipeline.MODE_MINIMIZERS
 
     def run(self, seq, ambiguous: np.ndarray | None = None,
             device: torch.device | str = "cuda") -> Output:
         """Positions (window indices for syncmers, with the first-window
         indices for super-k-mers) of `seq` on `device`. Windows holding a
-        base that the per-base mask `ambiguous` flags are skipped."""
-        if self.syncmer != _ref._SYNCMER_NONE:
-            mode = (pipeline.MODE_OPEN_SYNCMERS if self.syncmer == _ref._SYNCMER_OPEN
-                    else pipeline.MODE_CLOSED_SYNCMERS)
-        elif self._super_kmers:
-            mode = pipeline.MODE_SUPERKMERS
-            # the reference cannot express it: rejected as the JAX builder does
-            pipeline.assert_no_superkmer_ambiguity(mode, ambiguous is not None)
-        else:
-            mode = pipeline.MODE_MINIMIZERS
+        char that the per-char mask `ambiguous` flags are skipped.
+
+        `seq` is a sequence of the port (`PackedSeq`, `AsciiSeq` or
+        `GenericSeq`), or bytes, str or a uint8 array (`as_seq`); any other
+        type raises TypeError (`convert.seq_from` rebuilds one).
+        """
+        mode = self._mode
+        # the reference cannot express it: rejected as the JAX builder does
+        pipeline.assert_no_superkmer_ambiguity(mode, ambiguous is not None)
         seq = as_seq(seq)
-        if getattr(seq, "char_bits", None) != 2:
-            raise NotImplementedError(
-                f"{type(seq).__name__} input is not ported yet: general text is ROADMAP A3")
+        text = isinstance(seq, GenericSeq)
+        if text:
+            chars = convert.text_bytes(seq, device)
+        elif isinstance(seq, (PackedSeq, AsciiSeq)):
+            chars = convert.packed_words(seq, device)
+        else:
+            raise TypeError(f"Builder.run takes a PackedSeq, AsciiSeq or GenericSeq, not "
+                            f"{type(seq).__name__} (run_skip_ambiguous_windows takes a "
+                            "PackedNSeqVec)")
         n = len(seq)
-        words = convert.packed_words(seq, device)
         amb = None if ambiguous is None else convert.ambiguity_plane(ambiguous, n, device)
-        res = backend.sketch(words, n, self.k, self.w, self._resolved_hasher(), mode, amb)
+        res = backend.sketch(chars, n, self.k, self.w, self._resolved_hasher(), mode, amb, text)
         # positions and indices are < 2^31: the uint32 views copy nothing
         if mode == pipeline.MODE_SUPERKMERS:
             pos, idx = (t.cpu().numpy().view(np.uint32) for t in res)
@@ -68,8 +142,26 @@ class Builder(_ref.Builder):
         positions = res.cpu().numpy().view(np.uint32)
         return Output(self._out_length, seq, positions, canonical=self.canonical)
 
+    def run_scalar(self, seq, ambiguous: np.ndarray | None = None) -> Output:
+        """NumPy-oracle run (the reference's scalar path; for testing)."""
+        seq = as_seq(seq)
+        codes = seq.codes()
+        sel = oracle.selected_stream(codes, self.k, self.w, self._resolved_hasher(),
+                                     ambiguous=ambiguous)
+        if self.syncmer != _SYNCMER_NONE:
+            pos = oracle.collect_syncmers(sel, self.w, self.syncmer == _SYNCMER_OPEN)
+            return Output(self._out_length, seq, pos, canonical=self.canonical)
+        if self._super_kmers:
+            pos, idx = oracle.collect_and_dedup_with_index(sel)
+            return Output(self._out_length, seq, pos, idx, canonical=self.canonical)
+        pos = oracle.collect_and_dedup(sel, skip_sentinel=ambiguous is not None)
+        return Output(self._out_length, seq, pos, canonical=self.canonical)
+
     def run_once(self, seq, device: torch.device | str = "cuda") -> np.ndarray:
         return self.run(seq, device=device).positions
+
+    def run_scalar_once(self, seq) -> np.ndarray:
+        return self.run_scalar(seq).positions
 
     def run_skip_ambiguous_windows(self, nseq: PackedNSeqVec,
                                    device: torch.device | str = "cuda") -> Output:
@@ -96,19 +188,19 @@ def canonical_minimizers(k: int, w: int) -> Builder:
 
 
 def closed_syncmers(k: int, w: int) -> Builder:
-    return Builder(k, w, canonical=False, syncmer=_ref._SYNCMER_CLOSED)
+    return Builder(k, w, canonical=False, syncmer=_SYNCMER_CLOSED)
 
 
 def canonical_closed_syncmers(k: int, w: int) -> Builder:
-    return Builder(k, w, canonical=True, syncmer=_ref._SYNCMER_CLOSED)
+    return Builder(k, w, canonical=True, syncmer=_SYNCMER_CLOSED)
 
 
 def open_syncmers(k: int, w: int) -> Builder:
-    return Builder(k, w, canonical=False, syncmer=_ref._SYNCMER_OPEN)
+    return Builder(k, w, canonical=False, syncmer=_SYNCMER_OPEN)
 
 
 def canonical_open_syncmers(k: int, w: int) -> Builder:
-    return Builder(k, w, canonical=True, syncmer=_ref._SYNCMER_OPEN)
+    return Builder(k, w, canonical=True, syncmer=_SYNCMER_OPEN)
 
 
 def minimizer_positions(seq, k: int, w: int, device: torch.device | str = "cuda") -> np.ndarray:

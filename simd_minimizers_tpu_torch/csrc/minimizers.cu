@@ -1,29 +1,38 @@
-// Minimizer positions, super-k-mers and syncmers of 2-bit packed DNA on
-// Hopper (sm_90a).
+// Minimizer positions, super-k-mers and syncmers of 2-bit packed DNA and of
+// general text on Hopper (sm_90a).
 //
 // Replaces the one Pallas TPU kernel of the JAX package:
 // simd_minimizers_tpu/ops/fused.py `_make_kernel.kernel`, launched through
 // `_invoke_pallas` (stages B1-B4, B5 skip-ambiguous windows, the B6 keep
-// mask of every mode, B7, B8 and the B9 super-k-mer index plane, for the nt
-// hasher). The semantics are those of ops/oracle.py: top-16-bit hash
-// comparison, leftmost (and, for the canonical right arm, rightmost)
-// tie-breaks, strict T/G majority strand rule, SKIPPED for a window that
-// holds an ambiguous base, adjacent dedup on the raw stream (SKIPPED
+// mask of every mode, B7, B8 and the B9 super-k-mer index plane). The
+// semantics are those of ops/oracle.py: top-16-bit hash comparison,
+// leftmost (and, for the canonical right arm, rightmost) tie-breaks, strict
+// majority strand rule on bit 1 of each char, SKIPPED for a window that
+// holds an ambiguous char, adjacent dedup on the raw stream (SKIPPED
 // included) with SKIPPED dropped after it, syncmer predicates without dedup.
 //
 // Three launches:
 //   1. minimizer_tiles<CANONICAL, MODE, AMB>: one block per tile of TILE
 //      windows. It reads the tile's chars (plus an l+3 char halo) straight
-//      from the plain 2-bit byte stream, and with AMB the ambiguity bits of
-//      the same chars from a 1-bit plane; hashes every k-mer with an O(1)
-//      rolling update per thread run, takes the packed (top16 | column)
-//      sliding minima, the strand blend, the SKIPPED mask and the keep mask
-//      of MODE (recomputing the sel of the window before the tile for the
-//      dedup, so no state crosses blocks), and left-packs the kept values
-//      with a popc + block scan: positions (MINIMIZERS), positions and
-//      window indices (SUPERKMERS, two planes) or window indices
-//      (SYNCMERS). Plane p of tile t goes to scratch[(p * ntiles + t) *
-//      TILE], the tile's count to counts[t].
+//      from the plain 2-bit byte stream, or from the raw bytes of text
+//      (`text`; the TPU's byte-striped `striped8` input and the decode of
+//      `lane_matrix_from`), one char per shared byte either way, and with
+//      AMB the ambiguity bits of the same chars from a 1-bit plane; hashes
+//      every k-mer with an O(1) rolling update per thread run, takes the
+//      packed (top16 | column) sliding minima, the strand blend, the
+//      SKIPPED mask and the keep mask of MODE (recomputing the sel of the
+//      window before the tile for the dedup, so no state crosses blocks),
+//      and left-packs the kept values with a popc + block scan: positions
+//      (MINIMIZERS), positions and window indices (SUPERKMERS, two planes)
+//      or window indices (SYNCMERS). Plane p of tile t goes to
+//      scratch[(p * ntiles + t) * TILE], the tile's count to counts[t].
+//      The hash (the TPU's `_hash_windows`) is one of two block-uniform
+//      branches: nt and mul are one fold, XOR_i rotl(F[c_i], i + rot), over
+//      per-char forward and complement values F and R that the host builds
+//      (4 words each for 2-bit codes, 256 each for text bytes, in dynamic
+//      shared memory behind the tile's other data); antilex (`antilex`) reads
+//      no table and packs the first min(k, 16) chars with a rolling shift on
+//      each strand.
 //   2. tile_offsets: one block takes the exclusive scan of the counts and
 //      writes the total behind them (the running total the TPU kept in SMEM).
 //   3. tile_append: copies each tile's run of each plane to its global offset.
@@ -31,23 +40,30 @@
 // shared-memory limit of every minimizer_tiles instance is raised once per
 // card (smt_init). Only the instances the Python side can reach are built
 // (tiles_instance): super-k-mers never carry an ambiguity plane (the
-// reference cannot express it), so no SUPERKMERS instance has AMB. The
-// instances do not add up in build time: nvcc optimises them in parallel
-// (--split-compile, ops/_build.py).
+// reference cannot express it), so no SUPERKMERS instance has AMB. Input
+// kind and hasher are kernel arguments, not template parameters, so they
+// add no instance to the build. The instances do not add up in build time:
+// nvcc optimises them in parallel (--split-compile, ops/_build.py).
 //
-// What bounds it on the H100: it reads 0.25 B/bp (plus 0.125 B/bp of
-// ambiguity bits) and writes about 4 B per kept value twice (scratch, then
-// output) plus 4 B reread, so at the density 2/(w+1) of random DNA it moves
-// under 2 B/bp per plane: far below the card's 3.35 TB/s. The work is
-// integer ALU: per k-mer two table lookups and a few funnel shifts (rolling
-// hash, both strands), per window 2w unsigned mins and a sliding T/G count.
-// The design keeps every intermediate in shared memory or registers, makes
-// the hash O(1) per k-mer instead of O(k), and launches enough blocks (one
-// per 4096 windows) to fill all SMs. An ambiguity plane costs a clean tile
-// one block vote (__syncthreads_or, the counterpart of the TPU's per-block
-// amb_any flags); only a tile with an ambiguous base in its span counts
-// them per window, by popc for the first window of each thread and a
-// sliding count after it.
+// What bounds it on the H100: it reads 0.25 B/char of 2-bit input or 1
+// B/char of text (plus 0.125 B/char of ambiguity bits) and writes about 4 B
+// per kept value twice (scratch, then output) plus 4 B reread, so at the
+// density 2/(w+1) of random input it moves under 3 B/char per plane: far
+// below the card's 3.35 TB/s. The work is integer ALU: per k-mer two table
+// lookups in shared memory and a few funnel shifts (rolling hash, both
+// strands; antilex: two shifts and an or per strand), per window 2w
+// unsigned mins and a sliding T/G count. The function itself needs about 29
+// operations per window canonical and 14 forward at k=21 (chip_smoke.py's
+// bound, with an O(1) sliding minimum); the w mins per arm are the main
+// excess over it (ROADMAP A3, large w). The design keeps every
+// intermediate in shared memory or registers, makes the hash O(1) per k-mer
+// instead of O(k), and launches enough blocks (one per 4096 windows) to
+// fill all SMs. An ambiguity plane costs a clean tile one block vote
+// (__syncthreads_or, the counterpart of the TPU's per-block amb_any flags);
+// only a tile with an ambiguous char in its span counts them per window, by
+// popc for the first window of each thread and a sliding count after it.
+// Unlike the TPU's text path, whose halo stops at l - 1 <= 1024, text takes
+// any w the shared memory admits (ops/fused.fused_supported), as DNA does.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,6 +77,8 @@ constexpr int SCAN_THREADS = 1024;
 constexpr uint32_t INVALID = 0xFFFFFFFFu;
 constexpr uint32_t SKIPPED = 0xFFFFFFFEu;
 constexpr uint32_t TOP16 = 0xFFFF0000u;
+constexpr int CODES = 4;         // per-char table entries of 2-bit input
+constexpr int TEXT_CHARS = 256;  // per-char table entries of text (bytes)
 
 // Modes of minimizer_tiles: what is kept and which planes are written.
 constexpr int MINIMIZERS = 0;  // sel where it differs from the previous window's sel
@@ -71,7 +89,9 @@ constexpr int SYNCMERS = 2;    // the window index gw where sel - gw is sync_lo 
 // [t0 - 4, t0 + TILE + l - 1) of the tile starting at window t0, rounded up
 // to whole packed bytes; k-mer keys cover k-mers t0 - 1 .. t0 + TILE + w - 2,
 // and their space also stages the compacted planes (TILE words each); with
-// AMB, ambiguity bits cover chars t0 - 32 .. in whole 32-bit words.
+// AMB, ambiguity bits cover chars t0 - 32 .. in whole 32-bit words; the
+// fold's forward and complement values of each char follow (2 * 4 words for
+// 2-bit codes, 2 * 256 for text bytes, none for antilex).
 __host__ __device__ inline int tile_chars(int l) { return (TILE + l + 3 + 3) / 4 * 4; }
 __host__ __device__ inline int key_offset(int l) { return (tile_chars(l) + 15) / 16 * 16; }
 __host__ __device__ inline int tile_kmers(int w) { return TILE + w; }
@@ -81,11 +101,15 @@ __host__ __device__ inline int key_words(int w, bool canonical, int mode) {
   return keys > staged ? keys : staged;
 }
 __host__ __device__ inline int amb_words(int l) { return (TILE + l + 62) / 32; }
+__host__ __device__ inline int table_words(bool text, bool antilex) {
+  return antilex ? 0 : 2 * (text ? TEXT_CHARS : CODES);
+}
 
-inline size_t tile_smem_bytes(int k, int w, bool canonical, int mode, bool amb) {
+inline size_t tile_smem_bytes(int k, int w, bool canonical, int mode, bool amb, bool text,
+                              bool antilex) {
   const int l = k + w - 1;
   return (size_t)key_offset(l) + 4 * (size_t)key_words(w, canonical, mode) +
-         (amb ? 4 * (size_t)amb_words(l) : 0);
+         (amb ? 4 * (size_t)amb_words(l) : 0) + 4 * (size_t)table_words(text, antilex);
 }
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
@@ -120,11 +144,10 @@ __device__ __forceinline__ int block_inclusive_scan(int x, int* warp_sums, int* 
 template <bool CANONICAL, int MODE, bool AMB>
 __global__ void __launch_bounds__(THREADS)
 minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int k, int w,
-                const long long* __restrict__ table, int rot, const uint8_t* __restrict__ amb,
-                long long amb_nbytes, int sync_lo, int sync_hi, int* __restrict__ scratch,
-                int* __restrict__ counts) {
+                int text, int antilex, const long long* __restrict__ table, int rot,
+                const uint8_t* __restrict__ amb, long long amb_nbytes, int sync_lo, int sync_hi,
+                int* __restrict__ scratch, int* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ uint32_t s_tab[4];
   __shared__ int s_warp[THREADS / 32];
 
   const int tid = threadIdx.x;
@@ -137,18 +160,38 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
   uint32_t* s_kl = reinterpret_cast<uint32_t*>(smem + key_offset(l));  // s_kl[j]: k-mer t0 - 1 + j
   uint32_t* s_kr = s_kl + nk;
   uint32_t* s_amb = s_kl + key_words(w, CANONICAL, MODE);  // bit b: char t0 - 32 + b
+  // the fold's per-char values: forward tF[c], complement tR[c]
+  uint32_t* tF = s_amb + (AMB ? amb_words(l) : 0);
+  uint32_t* tR = tF + (text ? TEXT_CHARS : CODES);
+  for (int i = tid; i < table_words(text, antilex); i += THREADS) tF[i] = (uint32_t)table[i];
 
-  if (tid < 4) s_tab[tid] = (uint32_t)table[tid];
-
-  // B1: decode whole packed bytes (base i at bits 2 * (i % 4)) into one
-  // code per shared byte. Chars outside [0, nbytes * 4) read as 0; they only
-  // reach k-mers and windows masked below.
-  const long long b0 = t0 / 4 - 1;
-  for (int bi = tid; bi < nchars / 4; bi += THREADS) {
-    const long long gb = b0 + bi;
-    const uint32_t b = (gb >= 0 && gb < nbytes) ? words[gb] : 0u;
-    reinterpret_cast<uint32_t*>(s_c)[bi] =
-        (b & 3u) | ((b >> 2) & 3u) << 8 | ((b >> 4) & 3u) << 16 | ((b >> 6) & 3u) << 24;
+  // B1: one char per shared byte. 2-bit input: decode whole packed bytes
+  // (base i at bits 2 * (i % 4)), chars outside [0, nbytes * 4) reading as
+  // 0. Text: copy the bytes, four at a time where they are aligned and in
+  // range, chars outside [0, nbytes) reading as 0. Such chars only reach
+  // k-mers and windows masked below.
+  if (text) {
+    const long long g0 = t0 - 4;  // a multiple of 4
+    const bool aligned = (reinterpret_cast<uintptr_t>(words) & 3) == 0;
+    for (int bi = tid; bi < nchars / 4; bi += THREADS) {
+      const long long gb = g0 + 4LL * bi;
+      uint32_t x = 0;
+      if (aligned && gb >= 0 && gb + 4 <= nbytes) {
+        x = __ldg(reinterpret_cast<const uint32_t*>(words + gb));
+      } else {
+        for (int j = 0; j < 4; ++j)
+          if (gb + j >= 0 && gb + j < nbytes) x |= (uint32_t)words[gb + j] << (8 * j);
+      }
+      reinterpret_cast<uint32_t*>(s_c)[bi] = x;
+    }
+  } else {
+    const long long b0 = t0 / 4 - 1;
+    for (int bi = tid; bi < nchars / 4; bi += THREADS) {
+      const long long gb = b0 + bi;
+      const uint32_t b = (gb >= 0 && gb < nbytes) ? words[gb] : 0u;
+      reinterpret_cast<uint32_t*>(s_c)[bi] =
+          (b & 3u) | ((b >> 2) & 3u) << 8 | ((b >> 4) & 3u) << 16 | ((b >> 6) & 3u) << 24;
+    }
   }
   // B5 input: the ambiguity bits (base i at bit i % 8 of byte i / 8) of
   // chars t0 - 32 .., four bytes to a shared word, bytes outside the plane
@@ -173,33 +216,57 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
   }
 
   // B2 + B3 keys: each thread hashes a contiguous run of k-mers, the first
-  // in O(k), the rest by the rolling update. The forward hash is
-  // XOR_i rotl(T[c_i], i + rot), the reverse-complement one
-  // XOR_i rotl(T[c_i ^ 2], k - 1 - i + rot). Keys pack the top 16 hash bits
-  // with the column j (leftmost arm) or 0xFFFF - j (rightmost arm); k-mers
-  // outside [0, n - k] get INVALID on both arms.
+  // in O(k) (O(min(k, 16)) for antilex), the rest by the rolling update.
+  // Keys pack the top 16 hash bits with the column j (leftmost arm) or
+  // 0xFFFF - j (rightmost arm); k-mers outside [0, n - k] get INVALID on
+  // both arms. Column j's k-mer starts at s_c[j + 3].
   {
     const int per = (nk + THREADS - 1) / THREADS;
     const int j0 = tid * per;
     const int j1 = min(j0 + per, nk);
-    if (j0 < j1) {
+    auto put = [&](int j, uint32_t hash) {
+      const long long kp = t0 - 1 + j;
+      const bool ok = kp >= 0 && kp <= (long long)n - k;
+      const uint32_t top = hash & TOP16;
+      s_kl[j] = ok ? (top | (uint32_t)j) : INVALID;
+      if (CANONICAL) s_kr[j] = ok ? (top | (0xFFFFu - (uint32_t)j)) : INVALID;
+    };
+    if (j0 < j1 && antilex) {
+      // antilex: ~ of the first J = min(k, 16) chars & 3 packed MSB-first
+      // (la); canonical XORs in the same of the reverse complement, i.e. of
+      // the complemented last J chars, reversed (ra): ~la ^ ~ra = la ^ ra.
+      // la shifts in the char at i + J - 1 at bit lo = 32 - 2J; ra shifts
+      // right, takes the complement of the char at i + k - 1 at the top and
+      // keeps its top 2J bits.
+      const int J = min(k, 16), lo = 32 - 2 * J;
+      const uint32_t topJ = ~((1u << lo) - 1u);
+      uint32_t la = 0, ra = 0;
+      for (int q = 0; q < J; ++q) {
+        la |= (uint32_t)(s_c[j0 + 3 + q] & 3) << (30 - 2 * q);
+        if (CANONICAL) ra |= (uint32_t)((s_c[j0 + 2 + k - q] & 3) ^ 2) << (30 - 2 * q);
+      }
+      for (int j = j0;;) {
+        put(j, CANONICAL ? la ^ ra : ~la);
+        if (++j >= j1) break;
+        la = la << 2 | (uint32_t)(s_c[j + 2 + J] & 3) << lo;
+        if (CANONICAL) ra = (ra >> 2 | (uint32_t)((s_c[j + 2 + k] & 3) ^ 2) << 30) & topJ;
+      }
+    } else if (j0 < j1) {
+      // nt and mul: the forward hash XOR_i rotl(F[c_i], i + rot), the
+      // reverse-complement one XOR_i rotl(R[c_i], k - 1 - i + rot).
       uint32_t h = 0, r = 0;
       for (int i = 0; i < k; ++i) {
         const int c = s_c[j0 + 3 + i];
-        h ^= rotl(s_tab[c], i + rot);
-        if (CANONICAL) r ^= rotl(s_tab[c ^ 2], k - 1 - i + rot);
+        h ^= rotl(tF[c], i + rot);
+        if (CANONICAL) r ^= rotl(tR[c], k - 1 - i + rot);
       }
       for (int j = j0;;) {
-        const long long kp = t0 - 1 + j;
-        const bool ok = kp >= 0 && kp <= (long long)n - k;
-        const uint32_t top = (CANONICAL ? h ^ r : h) & TOP16;
-        s_kl[j] = ok ? (top | (uint32_t)j) : INVALID;
-        if (CANONICAL) s_kr[j] = ok ? (top | (0xFFFFu - (uint32_t)j)) : INVALID;
+        put(j, CANONICAL ? h ^ r : h);
         if (++j >= j1) break;
         const int c_out = s_c[j + 2], c_in = s_c[j + 2 + k];
-        h = rotr(h ^ rotl(s_tab[c_out], rot) ^ rotl(s_tab[c_in], k + rot), 1);
+        h = rotr(h ^ rotl(tF[c_out], rot) ^ rotl(tF[c_in], k + rot), 1);
         if (CANONICAL)
-          r = rotl(r ^ rotl(s_tab[c_out ^ 2], k - 1 + rot) ^ rotl(s_tab[c_in ^ 2], rot - 1), 1);
+          r = rotl(r ^ rotl(tR[c_out], k - 1 + rot) ^ rotl(tR[c_in], rot - 1), 1);
       }
     }
   }
@@ -324,8 +391,9 @@ tile_append(const int* __restrict__ scratch, const int* __restrict__ counts,
   for (int i = threadIdx.x; i < c; i += THREADS) dst[i] = src[i];
 }
 
-using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, const long long*, int,
-                             const uint8_t*, long long, int, int, int*, int*);
+using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, int, int,
+                             const long long*, int, const uint8_t*, long long, int, int, int*,
+                             int*);
 
 // The instances built; null for a combination that has none.
 template <bool C>
@@ -381,17 +449,18 @@ int smt_init(int device) {
 // or null for none. scratch holds ntiles * TILE ints per plane (two for
 // super-k-mers).
 int smt_minimizer_tiles(int device, const void* words, long long nbytes, int n, int k, int w,
-                        int canonical, int mode, const void* table, int rot, const void* amb,
-                        long long amb_nbytes, int sync_lo, int sync_hi, void* scratch,
-                        void* counts, int ntiles, void* stream) {
+                        int canonical, int mode, int text, int antilex, const void* table,
+                        int rot, const void* amb, long long amb_nbytes, int sync_lo, int sync_hi,
+                        void* scratch, void* counts, int ntiles, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const TilesKernel kern = tiles_instance(canonical != 0, mode, amb != nullptr);
-  if (kern == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes(k, w, canonical != 0, mode, amb != nullptr);
+  if (kern == nullptr || (table == nullptr && !antilex)) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      tile_smem_bytes(k, w, canonical != 0, mode, amb != nullptr, text != 0, antilex != 0);
   kern<<<ntiles, THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)words, nbytes, n, k, w, (const long long*)table, rot, (const uint8_t*)amb,
-      amb_nbytes, sync_lo, sync_hi, (int*)scratch, (int*)counts);
+      (const uint8_t*)words, nbytes, n, k, w, text, antilex, (const long long*)table, rot,
+      (const uint8_t*)amb, amb_nbytes, sync_lo, sync_hi, (int*)scratch, (int*)counts);
   return (int)cudaGetLastError();
 }
 

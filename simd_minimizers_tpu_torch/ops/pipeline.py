@@ -1,11 +1,13 @@
 """The plain PyTorch version of the minimizer kernel.
 
 Counterpart of `simd_minimizers_tpu/ops/pipeline.py` for the port's slice
-(nt hasher, 2-bit DNA; minimizers, super-k-mers, closed and open syncmers,
-with or without an ambiguity mask): the same lane matrix with l - 1 char
-halos, doubling folds for the k-mer hash, the T/G count and the ambiguous
-count, packed (top16 | column) sliding minima, strand blend, SKIPPED
-windows, and the keep rule of each mode. It compacts with a mask select
+(2-bit DNA or text bytes; the nt, mul and antilex hashers; minimizers,
+super-k-mers, closed and open syncmers, with or without an ambiguity
+mask): the same lane matrix with l - 1 char halos, doubling folds for the
+k-mer hash (nt and mul as one fold over per-char value tables,
+convert.char_tables), the T/G count and the ambiguous count, packed
+(top16 | column) sliding minima, strand blend, SKIPPED windows, and the
+keep rule of each mode. It compacts with a mask select
 instead of the TPU butterfly. It runs on any device; the CPU tests use it,
 and on the card it is what the CUDA kernel (`ops/fused.py`) is held
 against.
@@ -18,9 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from simd_minimizers_tpu.utils.bits import INVALID as _INVALID_NP
-from simd_minimizers_tpu.utils.bits import SKIPPED as _SKIPPED_NP
-
+from ..utils.bits import INVALID as _INVALID_NP
+from ..utils.bits import SKIPPED as _SKIPPED_NP
 from .layout import build_lane_matrix, window_min_cols_packed, windowed_sum, windowed_xor
 
 INVALID = int(_INVALID_NP)
@@ -34,6 +35,7 @@ MODE_CLOSED_SYNCMERS = "closed_syncmers"
 MODE_OPEN_SYNCMERS = "open_syncmers"
 MODES = (MODE_MINIMIZERS, MODE_SUPERKMERS, MODE_CLOSED_SYNCMERS, MODE_OPEN_SYNCMERS)
 SYNCMER_MODES = (MODE_CLOSED_SYNCMERS, MODE_OPEN_SYNCMERS)
+HASHER_KINDS = ("nt", "mul", "antilex")  # nt and mul: one fold over per-char tables
 
 
 def assert_no_superkmer_ambiguity(mode: str, has_ambiguity: bool) -> None:
@@ -74,6 +76,12 @@ def unpack_2bit(words: torch.Tensor, n: int) -> torch.Tensor:
     return ((words[:, None] >> shifts) & 3).reshape(-1)[:n]
 
 
+def unpack_chars(chars: torch.Tensor, n: int, text: bool) -> torch.Tensor:
+    """uint8 codes of the first n chars: the raw bytes of text, or the
+    2-bit codes of a 2-bit byte stream."""
+    return chars[:n] if text else unpack_2bit(chars, n)
+
+
 def unpack_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
     """uint8 0/1 flags of the first n bases of a 1-bit plane (base i at bit
     i % 8 of byte i // 8; convert.ambiguity_plane)."""
@@ -102,13 +110,34 @@ def nt_like_kmer_hashes_2d(vals, comp_vals, k: int, rot_offset: int, canonical: 
     return h
 
 
-def kmer_hashes_2d(M: torch.Tensor, table: torch.Tensor, k: int, rot_offset: int,
-                   canonical: bool, C: int) -> torch.Tensor:
-    """nt k-mer hashes of the (R, S) code matrix M; table is the hasher's
-    int64 table tensor (convert.hasher_tensors)."""
+def antilex_kmer_hashes_2d(M: torch.Tensor, k: int, canonical: bool) -> torch.Tensor:
+    """~ of the first J = min(k, 16) chars & 3 packed MSB-first, (R, S - k + 1)
+    int64; canonical XORs in the same of the reverse complement, whose first
+    J chars are the complemented last J chars of the k-mer, reversed."""
+    nk = M.shape[1] - k + 1
     c = M.to(torch.int64) & 3
-    vals = table[c]
-    comp_vals = table[c ^ 2] if canonical else None
+    la = torch.zeros(M.shape[0], nk, dtype=torch.int64, device=M.device)
+    for j in range(min(k, 16)):
+        la |= c[:, j : j + nk] << (30 - 2 * j)
+    if not canonical:
+        return ~la & MASK32
+    cc = c ^ 2
+    ra = torch.zeros_like(la)
+    for j in range(min(k, 16)):
+        ra |= cc[:, k - 1 - j : k - 1 - j + nk] << (30 - 2 * j)
+    return la ^ ra  # == ~la ^ ~ra
+
+
+def kmer_hashes_2d(M: torch.Tensor, tables: torch.Tensor | None, k: int, rot_offset: int,
+                   canonical: bool, C: int, kind: str = "nt") -> torch.Tensor:
+    """k-mer hashes of the (R, S) char matrix M (2-bit codes or text bytes):
+    antilex, or the nt / mul fold over the int64 (2, nchars) per-char values
+    `tables` (forward, complement; convert.hasher_tensors)."""
+    if kind == "antilex":
+        return antilex_kmer_hashes_2d(M, k, canonical)
+    c = M.to(torch.int64)
+    vals = tables[0][c]
+    comp_vals = tables[1][c] if canonical else None
     return nt_like_kmer_hashes_2d(vals, comp_vals, k, rot_offset, canonical, C)
 
 
@@ -141,19 +170,21 @@ def flat_length(C: int, R: int, l: int) -> int:
     return (R + (-(-halo // C) if halo else 0)) * C
 
 
-def selected_window_stream_2d(codes, n, k, w, table, rot_offset, canonical, C, R,
-                              ambiguous=None):
+def selected_window_stream_2d(codes, n, k, w, tables, rot_offset, canonical, C, R,
+                              ambiguous=None, kind="nt"):
     """Per-window selected minimizer positions for one chunk.
 
-    codes (and ambiguous, 0/1 flags per base, if given): uint8 tensors
-    padded to flat_length(C, R, l). Returns (sel (R * C,) int64 positions |
-    SKIPPED | INVALID, valid (R * C,) bool). SKIPPED marks a window that
-    holds an ambiguous base; a window past the end is INVALID even then.
+    codes (2-bit codes or text bytes; and ambiguous, 0/1 flags per char, if
+    given): uint8 tensors padded to flat_length(C, R, l). Returns (sel
+    (R * C,) int64 positions | SKIPPED | INVALID, valid (R * C,) bool).
+    SKIPPED marks a window that holds an ambiguous char; a window past the
+    end is INVALID even then. The strand count reads bit 1 of each code
+    (of the raw byte for text).
     """
     l = k + w - 1
     S = C + l - 1
     M = build_lane_matrix(codes, R, C, S)
-    h = kmer_hashes_2d(M, table, k, rot_offset, canonical, C)  # (R, C + w - 1)
+    h = kmer_hashes_2d(M, tables, k, rot_offset, canonical, C, kind)  # (R, C + w - 1)
     hv = h & TOP16
     kpos = _local_pos(R, C + w - 1, C, codes.device)
     hv = torch.where(kpos <= n - k, hv, INVALID)  # k-mers past the end never win
@@ -171,12 +202,14 @@ def selected_window_stream_2d(codes, n, k, w, table, rot_offset, canonical, C, R
     return sel, valid
 
 
-def kept_windows(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
+def kept_windows(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                  rot_offset: int, canonical: bool, mode: str = MODE_MINIMIZERS,
-                 ambiguous: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sel, keep) of the n - l + 1 windows of the first n bases of the
-    2-bit byte stream `words`: the raw selected stream (int64 positions,
-    SKIPPED where the window holds a base flagged in the 1-bit plane
+                 ambiguous: torch.Tensor | None = None, *, text: bool = False,
+                 kind: str = "nt") -> tuple[torch.Tensor, torch.Tensor]:
+    """(sel, keep) of the n - l + 1 windows of the first n chars of `chars`
+    (a 2-bit byte stream, or text bytes with `text`) hashed by `kind` with
+    the per-char `tables`: the raw selected stream (int64 positions,
+    SKIPPED where the window holds a char flagged in the 1-bit plane
     `ambiguous`) and the keep mask of `mode` (counterpart of the
     reference's `_pipeline_chunk_rows` before compaction). Minimizers and
     super-k-mers dedup adjacent windows on the raw stream and drop SKIPPED
@@ -187,14 +220,16 @@ def kept_windows(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tenso
     nw = max(n - l + 1, 0)
     C, R = lane_geometry(n, l)
     flat = flat_length(C, R, l)
-    codes = torch.zeros(flat, dtype=torch.uint8, device=words.device)
-    codes[:n] = unpack_2bit(words, n)
+    dev = chars.device
+    codes = torch.zeros(flat, dtype=torch.uint8, device=dev)
+    codes[:n] = unpack_chars(chars, n, text)
     amb = None
     if ambiguous is not None:
-        amb = torch.zeros(flat, dtype=torch.uint8, device=words.device)
+        amb = torch.zeros(flat, dtype=torch.uint8, device=dev)
         amb[:n] = unpack_bits(ambiguous, n)
-    sel, valid = selected_window_stream_2d(codes, n, k, w, table.to(words.device), rot_offset,
-                                           canonical, C, R, amb)
+    sel, valid = selected_window_stream_2d(codes, n, k, w, None if tables is None
+                                           else tables.to(dev), rot_offset, canonical, C, R,
+                                           amb, kind)
     if mode in SYNCMER_MODES:
         gw = torch.arange(sel.numel(), dtype=torch.int64, device=sel.device)
         lo, hi = syncmer_offsets(mode, w)
@@ -218,13 +253,15 @@ def _planes(sel: torch.Tensor, mode: str) -> list[torch.Tensor]:
     return [sel]
 
 
-def run_pipeline(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
+def run_pipeline(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                  rot_offset: int, canonical: bool, mode: str = MODE_MINIMIZERS,
-                 ambiguous: torch.Tensor | None = None):
-    """int32 positions (window indices for syncmers), on words.device, of
-    the first n bases of the 2-bit byte stream `words`, with the nt table
-    tensor `table`; for super-k-mers (positions, first-window indices)."""
-    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical, mode, ambiguous)
+                 ambiguous: torch.Tensor | None = None, *, text: bool = False,
+                 kind: str = "nt"):
+    """int32 positions (window indices for syncmers), on chars.device, of
+    the first n chars of `chars` (as in `kept_windows`); for super-k-mers
+    (positions, first-window indices)."""
+    sel, keep = kept_windows(chars, n, k, w, tables, rot_offset, canonical, mode, ambiguous,
+                             text=text, kind=kind)
     out = [p[keep].to(torch.int32) for p in _planes(sel, mode)]
     return tuple(out) if mode == MODE_SUPERKMERS else out[0]
 
@@ -232,23 +269,25 @@ def run_pipeline(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tenso
 # Plain versions of the three CUDA kernels (csrc/minimizers.cu), one each,
 # with the kernels' inputs and outputs. Chained, they give run_pipeline.
 
-def minimizer_tiles_plain(words: torch.Tensor, n: int, k: int, w: int, table: torch.Tensor,
-                          rot_offset: int, canonical: bool, tile: int,
-                          mode: str = MODE_MINIMIZERS, ambiguous: torch.Tensor | None = None):
+def minimizer_tiles_plain(chars: torch.Tensor, n: int, k: int, w: int,
+                          tables: torch.Tensor | None, rot_offset: int, canonical: bool, tile: int,
+                          mode: str = MODE_MINIMIZERS, ambiguous: torch.Tensor | None = None, *,
+                          text: bool = False, kind: str = "nt"):
     """(scratch, counts): tile t's kept values, in window order, in
     scratch[..., t * tile : t * tile + counts[t]] (int32; the rest of
     scratch is 0 here and undefined in the kernel), and counts (int32, one
     per tile of `tile` windows). scratch is (ntiles * tile,), or
     (2, ntiles * tile) for super-k-mers: positions, then window indices."""
-    sel, keep = kept_windows(words, n, k, w, table, rot_offset, canonical, mode, ambiguous)
+    sel, keep = kept_windows(chars, n, k, w, tables, rot_offset, canonical, mode, ambiguous,
+                             text=text, kind=kind)
     ntiles = -(-sel.numel() // tile)
-    keep2 = torch.zeros(ntiles * tile, dtype=torch.bool, device=words.device)
+    keep2 = torch.zeros(ntiles * tile, dtype=torch.bool, device=chars.device)
     keep2[:keep.numel()] = keep
     keep2 = keep2.view(ntiles, tile)
     rows, cols = keep2.nonzero(as_tuple=True)
     slots = (keep2.cumsum(1) - 1)[rows, cols]
     planes = _planes(sel, mode)
-    scratch = torch.zeros(len(planes), ntiles, tile, dtype=torch.int32, device=words.device)
+    scratch = torch.zeros(len(planes), ntiles, tile, dtype=torch.int32, device=chars.device)
     for p, values in enumerate(planes):
         scratch[p, rows, slots] = values[keep].to(torch.int32)
     scratch = scratch.view(len(planes), ntiles * tile)

@@ -1,4 +1,5 @@
-"""What the port carries across: the hasher's table and the 2-bit sequence.
+"""What the port carries across: the hasher's per-char tables and the
+2-bit sequence.
 
 A seeded NtHasher's table, moved by `convert.hasher_tensors`, must give
 the same k-mer hashes in both packages (the port's "weights").
@@ -13,8 +14,10 @@ from simd_minimizers_tpu.hashers import NT_TABLE, NtHasher
 from simd_minimizers_tpu.native import pack_2bit
 from simd_minimizers_tpu.ops import pipeline as jpipe
 from simd_minimizers_tpu.seq.packed import AsciiSeq, PackedSeqVec
+import simd_minimizers_tpu_torch as smt
 from simd_minimizers_tpu_torch import convert
 from simd_minimizers_tpu_torch.ops import pipeline
+from simd_minimizers_tpu_torch.seq.packed import pack_2bit as smt_pack_2bit
 
 
 @pytest.mark.parametrize("seed", [None, 0, 1, 2024, 2**40 + 3])
@@ -22,13 +25,14 @@ from simd_minimizers_tpu_torch.ops import pipeline
 def test_hasher_tensors_carry_the_table(seed, canonical):
     k = 21
     h = NtHasher(k, canonical=canonical, seed=seed)
-    key, table, mul_const = convert.hasher_tensors(h, "cpu")
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
     jkey, jtable, jmul = jpipe.hasher_jit_args(h)
-    assert key == jkey and mul_const == int(jmul)
-    assert table.dtype == torch.int64 and table.shape == (4,)
-    np.testing.assert_array_equal(table.numpy().astype(np.uint32), jtable)
+    assert key == jkey and int(jmul) == 0
+    # forward values F[c] = T[c], complement values R[c] = T[c ^ 2]
+    assert table.dtype == torch.int64 and table.shape == (2, 4)
+    np.testing.assert_array_equal(table.numpy().astype(np.uint32), [jtable, jtable[[2, 3, 0, 1]]])
     if seed is None:
-        np.testing.assert_array_equal(table.numpy().astype(np.uint32), NT_TABLE)
+        np.testing.assert_array_equal(table[0].numpy().astype(np.uint32), NT_TABLE)
 
     codes = np.random.default_rng(5).integers(0, 4, 600, dtype=np.uint8)
     M = torch.from_numpy(codes)[None, :]
@@ -41,7 +45,7 @@ def test_hasher_tensors_carry_the_table(seed, canonical):
 @pytest.mark.parametrize("offset", [0, 1, 2, 3, 4, 7])
 def test_packed_words_layout(offset):
     codes = np.random.default_rng(offset).integers(0, 4, 1001, dtype=np.uint8)
-    seq = PackedSeqVec.from_codes(codes).slice(offset, 1001)
+    seq = convert.seq_from(PackedSeqVec.from_codes(codes).slice(offset, 1001))
     words = convert.packed_words(seq, "cpu")
     assert words.dtype == torch.uint8 and words.numel() == (seq.length + 3) // 4
     np.testing.assert_array_equal(pipeline.unpack_2bit(words, seq.length).numpy(),
@@ -49,12 +53,34 @@ def test_packed_words_layout(offset):
 
 
 def test_packed_words_zero_copy_when_aligned():
-    seq = PackedSeqVec.random(1000, np.random.default_rng(1))
+    seq = convert.seq_from(PackedSeqVec.random(1000, np.random.default_rng(1)))
     words = convert.packed_words(seq, "cpu")
     assert words.data_ptr() == seq.data.ctypes.data
 
 
 def test_packed_words_from_ascii():
     raw = b"ACGTTGCA" * 9
-    words = convert.packed_words(AsciiSeq(raw), "cpu")
+    words = convert.packed_words(smt.AsciiSeq(raw), "cpu")
     np.testing.assert_array_equal(words.numpy(), pack_2bit(AsciiSeq(raw).codes()))
+    np.testing.assert_array_equal(smt_pack_2bit(AsciiSeq(raw).codes()), words.numpy())
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1001])
+def test_pack_2bit_vs_native(n):
+    """The port's NumPy packing equals the JAX package's native one."""
+    codes = np.random.default_rng(n).integers(0, 4, n, dtype=np.uint8)
+    got = smt_pack_2bit(codes)
+    assert got.dtype == np.uint8 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, pack_2bit(codes))
+    np.testing.assert_array_equal(smt.PackedSeqVec.from_codes(codes).codes(), codes)
+
+
+def test_text_bytes():
+    """Text crosses as its raw bytes, 1 B per char, without a host copy."""
+    raw = np.random.default_rng(3).integers(0, 256, 777, dtype=np.uint8)
+    t = convert.text_bytes(smt.GenericSeq(raw), "cpu")
+    assert t.dtype == torch.uint8 and t.shape == (777,)
+    assert t.data_ptr() == raw.ctypes.data
+    np.testing.assert_array_equal(t.numpy(), raw)
+    t = convert.text_bytes(smt.GenericSeq(b"read-only bytes!"), "cpu")
+    assert bytes(t.numpy()) == b"read-only bytes!"

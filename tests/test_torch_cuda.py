@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain versions and the oracle, on a card.
 
 Every instance of minimizer_tiles (strand x minimizers / super-k-mers /
-syncmers x ambiguity plane) and both small kernels, around tile seams.
+syncmers x ambiguity plane), on 2-bit DNA and on text, with the nt, mul
+and antilex hashers, and both small kernels, around tile seams. The port
+runs on its own classes; the independent reference is the JAX package's
+NumPy oracle with the JAX package's hashers (both import no JAX).
 
 Marked `cuda`; without a CUDA card every test skips. This file imports no
 JAX, so on a machine without it run it as
@@ -13,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from simd_minimizers_tpu.hashers import NtHasher
+from simd_minimizers_tpu.hashers import AntiLexHasher, MulHasher, NtHasher
 from simd_minimizers_tpu.ops import oracle
-from simd_minimizers_tpu.seq.packed import PackedNSeqVec, PackedSeqVec
 from simd_minimizers_tpu_torch import api, convert
 from simd_minimizers_tpu_torch.ops import fused, pipeline
+from simd_minimizers_tpu_torch.seq.packed import GenericSeq, PackedNSeqVec, PackedSeqVec
 
 pytestmark = pytest.mark.cuda
 
@@ -33,14 +36,24 @@ def dev():
     return torch.device("cuda")
 
 
-def _both(codes, k, w, h, dev, mode=pipeline.MODE_MINIMIZERS, amb=None):
-    """(kernel path, plain version) on the card, as numpy planes."""
-    words = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
-    key, table, _ = convert.hasher_tensors(h, dev)
+def _args(codes, k, w, h, dev, mode=pipeline.MODE_MINIMIZERS, amb=None, text=False):
+    """(positional, keyword) arguments of the wrapper and its plain version
+    for codes (2-bit codes, or text bytes) hashed by the port's copy of h."""
+    if text:
+        chars = convert.text_bytes(GenericSeq(codes), dev)
+    else:
+        chars = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
+    (kind, canonical, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev, text)
     plane = None if amb is None else convert.ambiguity_plane(amb, codes.size, dev)
-    args = (words, codes.size, k, w, table, key[2], h.canonical, mode, plane)
-    got = fused.fused_sketch(*args)
-    want = pipeline.run_pipeline(*args)
+    return ((chars, codes.size, k, w, tables, rot, canonical, mode, plane),
+            {"text": text, "kind": kind})
+
+
+def _both(codes, k, w, h, dev, mode=pipeline.MODE_MINIMIZERS, amb=None, text=False):
+    """(kernel path, plain version) on the card, as numpy planes."""
+    args, kw = _args(codes, k, w, h, dev, mode, amb, text)
+    got = fused.fused_sketch(*args, **kw)
+    want = pipeline.run_pipeline(*args, **kw)
     torch.cuda.synchronize()
     if mode == SKM:
         return tuple(t.cpu().numpy() for t in got), tuple(t.cpu().numpy() for t in want)
@@ -101,9 +114,7 @@ def test_each_kernel_vs_its_plain_version(dev, canonical):
     k, w = 21, 11
     codes = np.random.default_rng(8).integers(0, 4, 3 * TILE + 17 + k + w - 2, dtype=np.uint8)
     h = NtHasher(k, canonical=canonical)
-    words = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
-    key, table, _ = convert.hasher_tensors(h, dev)
-    args = (words, codes.size, k, w, table, key[2], canonical)
+    args = _args(codes, k, w, h, dev)[0][:7]
     scratch, counts = fused.minimizer_tiles(*args)
     plain_scratch, plain_counts = pipeline.minimizer_tiles_plain(*args, TILE)
     assert torch.equal(counts, plain_counts)
@@ -215,10 +226,8 @@ def test_each_new_instance_vs_its_plain_version(dev, canonical, mode, amb):
     rng = np.random.default_rng(9)
     codes = rng.integers(0, 4, n, dtype=np.uint8)
     h = NtHasher(k, canonical=canonical)
-    words = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
-    key, table, _ = convert.hasher_tensors(h, dev)
-    plane = convert.ambiguity_plane(_clustered_mask(n, k + w - 1, rng), n, dev) if amb else None
-    args = (words, n, k, w, table, key[2], canonical, mode, plane)
+    args = _args(codes, k, w, h, dev, mode, _clustered_mask(n, k + w - 1, rng) if amb else None)[0]
+    plane = args[-1]
     name = fused.instance_name(canonical, mode, amb)
     before = fused.LAUNCHES[name]
     scratch, counts = fused.minimizer_tiles(*args)
@@ -276,3 +285,145 @@ def test_builders_on_card(dev):
     b = api.canonical_minimizers(21, 11)
     np.testing.assert_array_equal(b.run_skip_ambiguous_windows_once(nseq, device=dev),
                                   b.run_scalar(seq, ambiguous=amb).positions)
+
+
+# -- text and the mul and antilex hashers ------------------------------------
+# (the hasher and text part of tests/test_tpu_hardware.py's fuzz)
+HASHER_CASES = [(MulHasher, 31, 5, False), (MulHasher, 21, 11, True),
+                (AntiLexHasher, 19, 19, True), (AntiLexHasher, 5, 7, True),
+                (AntiLexHasher, 33, 7, True), (NtHasher, 21, 11, True)]
+
+
+@pytest.mark.parametrize("cls,k,w,canonical", HASHER_CASES)
+@pytest.mark.parametrize("text", [False, True])
+@pytest.mark.parametrize("mode", [pipeline.MODE_MINIMIZERS, SKM, CLOSED, OPEN])
+def test_hashers_vs_plain_and_oracle(dev, cls, k, w, canonical, text, mode):
+    """On 2-bit DNA and on text, around tile seams, seeded and not (antilex
+    has no seed)."""
+    l = k + w - 1
+    rng = np.random.default_rng(k * 100 + w)
+    for seed in (None, 31) if cls is not AntiLexHasher else (None,):
+        h = cls(k, canonical=canonical, seed=seed)
+        for nw in [1, TILE - 1, TILE + 1, 3 * TILE + 17, 100_003]:
+            codes = rng.integers(0, 256 if text else 4, nw + l - 1, dtype=np.uint8)
+            got, want = _both(codes, k, w, h, dev, mode, text=text)
+            _assert_planes(got, want, _oracle(codes, k, w, h, mode))
+
+
+def test_text_mul_on_card(dev):
+    """tests/test_tpu_hardware.py's text case: printable bytes, mul (7, 5)."""
+    text = np.random.default_rng(0xF022).integers(32, 127, 50_000, dtype=np.uint8)
+    h = MulHasher(7)
+    got, want = _both(text, 7, 5, h, dev, text=True)
+    _assert_planes(got, want, _oracle(text, 7, 5, h))
+    b = api.minimizers(7, 5).hasher(convert.hasher_from(h))
+    np.testing.assert_array_equal(b.run_once(text.tobytes(), device=dev), want)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("cls", [MulHasher, NtHasher, AntiLexHasher])
+def test_text_w2047(dev, canonical, cls):
+    """Text at w = 2047: beyond the TPU kernel's text halo, inside this one."""
+    k, w = 21, 2047
+    codes = np.random.default_rng(2047).integers(0, 256, 5 * TILE + k + w - 2, dtype=np.uint8)
+    h = cls(k, canonical=canonical)
+    got, want = _both(codes, k, w, h, dev, text=True)
+    _assert_planes(got, want, _oracle(codes, k, w, h))
+
+
+def test_text_with_mask_and_ties(dev):
+    """Text with a mask (random and across tile seams), and low-entropy
+    text whose antilex keys tie, every mode but super-k-mers with a mask."""
+    rng = np.random.default_rng(77)
+    n = 5 * TILE + 3 + 30
+    text = rng.integers(32, 127, n, dtype=np.uint8)
+    runs = np.repeat(rng.integers(0, 256, 9000, dtype=np.uint8), rng.integers(1, 40, 9000))
+    for mode in (pipeline.MODE_MINIMIZERS, CLOSED, OPEN):
+        for h in (MulHasher(21), NtHasher(21, canonical=True), AntiLexHasher(21, canonical=True)):
+            for amb in (rng.random(n) < 0.01, _clustered_mask(n, 31, rng)):
+                got, want = _both(text, 21, 11, h, dev, mode, amb, text=True)
+                _assert_planes(got, want, _oracle(text, 21, 11, h, mode, amb))
+    for mode in (pipeline.MODE_MINIMIZERS, SKM):
+        for canonical in (False, True):
+            h = AntiLexHasher(21, canonical=canonical)
+            got, want = _both(runs, 21, 11, h, dev, mode, text=True)
+            _assert_planes(got, want, _oracle(runs, 21, 11, h, mode))
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("mode,amb", [(pipeline.MODE_MINIMIZERS, False),
+                                      (pipeline.MODE_MINIMIZERS, True), (SKM, False),
+                                      (CLOSED, False), (CLOSED, True), (OPEN, True)])
+@pytest.mark.parametrize("cls,text", [(MulHasher, True), (AntiLexHasher, True),
+                                      (NtHasher, True), (MulHasher, False),
+                                      (AntiLexHasher, False)])
+def test_each_instance_with_text_and_hashers_vs_its_plain_version(dev, canonical, mode, amb,
+                                                                  cls, text):
+    """Every instance with the new input kind and hashers, each kernel
+    against its plain version at several tile counts."""
+    k, w = 21, 11
+    rng = np.random.default_rng(10)
+    h = cls(k, canonical=canonical)
+    for ntiles in (1, 2, 7):
+        n = ntiles * TILE - 5 + k + w - 2
+        codes = rng.integers(0, 256 if text else 4, n, dtype=np.uint8)
+        mask = _clustered_mask(n, k + w - 1, rng) if amb else None
+        args, kw = _args(codes, k, w, h, dev, mode, mask, text)
+        name = fused.instance_name(canonical, mode, amb)
+        before = fused.LAUNCHES[name]
+        scratch, counts = fused.minimizer_tiles(*args, **kw)
+        assert fused.LAUNCHES[name] == before + 1 and counts.numel() == ntiles
+        plain_scratch, plain_counts = pipeline.minimizer_tiles_plain(*args[:7], TILE,
+                                                                     *args[7:], **kw)
+        assert torch.equal(counts, plain_counts)
+        live = torch.arange(TILE, device=dev) < counts[:, None]
+        for got, want in zip(scratch.view(-1, ntiles, TILE), plain_scratch.view(-1, ntiles, TILE)):
+            assert torch.equal(got[live], want[live])
+        offsets = fused.tile_offsets(counts)
+        assert torch.equal(offsets, pipeline.tile_offsets_plain(counts))
+        total = int(offsets[-1])
+        assert torch.equal(fused.tile_append(scratch, counts, offsets, total),
+                           pipeline.tile_append_plain(scratch, counts, offsets, total, TILE))
+
+
+@pytest.mark.parametrize("mode,amb,canonical,cls,text", [
+    (pipeline.MODE_MINIMIZERS, False, True, MulHasher, True),
+    (pipeline.MODE_MINIMIZERS, True, False, MulHasher, True),
+    (SKM, False, False, MulHasher, True), (CLOSED, True, True, MulHasher, True),
+    (pipeline.MODE_MINIMIZERS, True, False, AntiLexHasher, True),
+    (SKM, False, True, AntiLexHasher, False)])
+def test_widest_geometry_text(dev, mode, amb, canonical, cls, text):
+    """The fold's tables count against the gate (2 KB for text, none for
+    antilex): the widest w it admits runs."""
+    k = 21
+    step = 2 if canonical else 1
+    kind = "antilex" if cls is AntiLexHasher else "mul"
+    w = max(w for w in range(1, 1 << 16, step)
+            if fused.fused_supported(k, w, canonical, mode, amb, text, kind))
+    assert not fused.fused_supported(k, w + step, canonical, mode, amb, text, kind)
+    n = 4 * w + k + w - 2
+    rng = np.random.default_rng(w)
+    codes = rng.integers(0, 256 if text else 4, n, dtype=np.uint8)
+    mask = (rng.random(n) < 1e-4) if amb else None
+    h = cls(k, canonical=canonical)
+    got, want = _both(codes, k, w, h, dev, mode, mask, text=text)
+    _assert_planes(got, want, _oracle(codes, k, w, h, mode, mask))
+
+
+def test_builders_text_and_hashers_on_card(dev):
+    """The public builders on the card: text (bytes, GenericSeq) with mul,
+    nt and antilex, and DNA with mul and antilex, against the port's oracle."""
+    rng = np.random.default_rng(13)
+    text = rng.integers(32, 127, 200_000, dtype=np.uint8).tobytes()
+    seq = PackedSeqVec.random(200_000, rng)
+    for k, w, cls, canonical in ((21, 11, MulHasher, False), (21, 11, NtHasher, True),
+                                 (21, 11, AntiLexHasher, True), (31, 5, MulHasher, False)):
+        h = convert.hasher_from(cls(k, canonical=canonical))
+        for b in (api.Builder(k, w, canonical).hasher(h),
+                  api.Builder(k, w, canonical, syncmer=1).hasher(h),
+                  api.Builder(k, w, canonical).hasher(h).super_kmers()):
+            for s in (text, GenericSeq(text), seq):
+                out, want = b.run(s, device=dev), b.run_scalar(s)
+                np.testing.assert_array_equal(out.positions, want.positions)
+                if out.superkmer_indices is not None:
+                    np.testing.assert_array_equal(out.superkmer_indices, want.superkmer_indices)

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from simd_minimizers_tpu.hashers import MulHasher, NtHasher
+import simd_minimizers_tpu_torch as smt
+
+from simd_minimizers_tpu.hashers import AntiLexHasher, MulHasher, NtHasher
 from simd_minimizers_tpu.native import pack_2bit
 from simd_minimizers_tpu.ops import fused as jfused
 from simd_minimizers_tpu.ops import oracle
@@ -22,8 +24,8 @@ C = 1024  # the JAX kernel's smallest legal block width, as tests/test_fused.py 
 
 def _port(codes, k, w, h):
     words = torch.from_numpy(pack_2bit(codes))
-    key, table, _ = convert.hasher_tensors(h, "cpu")
-    return fused.fused_sketch(words, codes.size, k, w, table, key[2], h.canonical)
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
+    return fused.fused_sketch(words, codes.size, k, w, table, key[2], h.canonical, kind=key[0])
 
 
 @pytest.mark.parametrize("k,w,canonical,seed", [
@@ -59,7 +61,7 @@ def test_each_kernel_cpu_vs_oracle(k, w, canonical, nw):
     before = dict(fused.LAUNCHES)
 
     words = torch.from_numpy(pack_2bit(codes))
-    key, table, _ = convert.hasher_tensors(h, "cpu")
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
     scratch, counts = fused.minimizer_tiles(words, codes.size, k, w, table, key[2], canonical)
     assert scratch.shape == (ntiles * tile,) and scratch.dtype == counts.dtype == torch.int32
     np.testing.assert_array_equal(counts.numpy(), want_counts)
@@ -90,11 +92,12 @@ def test_geometry_gate():
     assert not fused.fused_supported(21, 43_000, canonical=False)
     assert fused.fused_supported(21, 11) and fused.fused_supported(64, 2)
     assert not fused.fused_supported(200_000, 11)
-    assert fused._tile_smem_bytes(21, 11, True) == 4144 + 2 * (fused.TILE + 11) * 4
+    # chars, keys, then the nt fold's 2-bit tables (2 x 4 words)
+    assert fused._tile_smem_bytes(21, 11, True) == 4144 + 2 * (fused.TILE + 11) * 4 + 32
     # super-k-mers stage two planes of TILE words in the keys' space; an
     # ambiguity plane adds the tile's bits in 32-bit words
     skm = pipeline.MODE_SUPERKMERS
-    assert fused._tile_smem_bytes(21, 11, False, skm) == 4144 + 2 * fused.TILE * 4
+    assert fused._tile_smem_bytes(21, 11, False, skm) == 4144 + 2 * fused.TILE * 4 + 32
     assert fused._tile_smem_bytes(21, 11, True, skm) == fused._tile_smem_bytes(21, 11, True)
     assert (fused._tile_smem_bytes(21, 11, True, ambiguous=True)
             == fused._tile_smem_bytes(21, 11, True) + (fused.TILE + 31 + 62) // 32 * 4)
@@ -107,7 +110,7 @@ def test_geometry_gate():
 def test_beyond_gate_raises_on_cpu(k, w):
     words = torch.zeros(1 << 16, dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        backend.sketch(words, 1 << 18, k, w, NtHasher(k, canonical=(k + w) % 2 == 0))
+        backend.sketch(words, 1 << 18, k, w, smt.NtHasher(k, canonical=(k + w) % 2 == 0))
 
 
 @pytest.mark.parametrize("mode", [pipeline.MODE_SUPERKMERS, pipeline.MODE_CLOSED_SYNCMERS,
@@ -119,7 +122,7 @@ def test_other_modes_raise(mode):
     syncmers with an even w, a canonical hasher with an even l."""
     codes = np.random.default_rng(6).integers(0, 4, 400, dtype=np.uint8)
     words = torch.from_numpy(pack_2bit(codes))
-    h = NtHasher(5)
+    h = smt.NtHasher(5)
     got = backend.sketch(words, 400, 5, 7, h, mode=mode)
     sel = oracle.selected_stream(codes, 5, 7, h)
     if mode == pipeline.MODE_SUPERKMERS:
@@ -130,22 +133,35 @@ def test_other_modes_raise(mode):
         want = oracle.collect_syncmers(sel, 7, mode == pipeline.MODE_OPEN_SYNCMERS)
         np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
         refused = (dict(w=8, hasher=h) if mode == pipeline.MODE_OPEN_SYNCMERS
-                   else dict(w=8, hasher=NtHasher(5, canonical=True)))
+                   else dict(w=8, hasher=smt.NtHasher(5, canonical=True)))
     with pytest.raises(AssertionError):
         backend.sketch(words, 400, 5, refused.pop("w"), refused.pop("hasher"), mode=mode,
                        **refused)
 
 
 def test_other_hasher_raises():
-    words = torch.zeros(100, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    """The mul and antilex hashers, refused until they were ported, run on
+    the CPU and match the oracle; a hasher that is not the port's, or of
+    another k, still raises."""
+    codes = np.random.default_rng(7).integers(0, 4, 400, dtype=np.uint8)
+    words = torch.from_numpy(pack_2bit(codes))
+    for cls in (MulHasher, AntiLexHasher):
+        for canonical in (False, True):
+            jh = cls(5, canonical=canonical)
+            got = backend.sketch(words, 400, 5, 7, convert.hasher_from(jh))
+            want = oracle.collect_and_dedup(oracle.selected_stream(codes, 5, 7, jh))
+            np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    with pytest.raises(TypeError):
         backend.sketch(words, 400, 5, 7, MulHasher(5))
+    with pytest.raises(ValueError):
+        backend.sketch(words, 400, 5, 7, smt.MulHasher(6))
 
 
 def test_long_input_raises():
     words = torch.zeros(4, dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        fused.fused_sketch(words, 1 << 31, 21, 11, torch.zeros(4, dtype=torch.int64), 23, False)
+        fused.fused_sketch(words, 1 << 31, 21, 11, torch.zeros(2, 4, dtype=torch.int64), 23,
+                           False)
 
 
 def test_bad_arguments_raise():
@@ -163,7 +179,9 @@ def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     seq = np.zeros(100, np.uint8)
-    from simd_minimizers_tpu.seq.packed import PackedSeqVec
-
     with pytest.raises(RuntimeError):
-        convert.packed_words(PackedSeqVec.from_codes(seq), "cuda")
+        convert.packed_words(smt.PackedSeqVec.from_codes(seq), "cuda")
+    with pytest.raises(RuntimeError):
+        convert.text_bytes(smt.GenericSeq(seq), "cuda")
+    with pytest.raises(RuntimeError):
+        convert.hasher_tensors(smt.NtHasher(5), "cuda")

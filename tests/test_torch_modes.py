@@ -70,7 +70,7 @@ def _oracle(codes, h, mode, amb):
 
 def _port(codes, h, mode, amb):
     words = torch.from_numpy(pack_2bit(codes))
-    key, table, _ = convert.hasher_tensors(h, "cpu")
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
     plane = None if amb is None else convert.ambiguity_plane(amb, codes.size, "cpu")
     before = dict(fused.LAUNCHES)
     got = fused.fused_sketch(words, codes.size, K, W, table, key[2], h.canonical, mode, plane)
@@ -109,7 +109,7 @@ def test_port_vs_jax_and_oracle(mode, canonical, mask):
         assert len(got) == len(want), name
         for g, p in zip(got, want):
             np.testing.assert_array_equal(g, p, err_msg=name)
-    out = _builder(smt, mode, canonical).run(PackedSeqVec.from_codes(codes), ambiguous=amb,
+    out = _builder(smt, mode, canonical).run(smt.PackedSeqVec.from_codes(codes), ambiguous=amb,
                                               device="cpu")
     np.testing.assert_array_equal(out.positions, got[0])
     if mode == SKM:
@@ -155,7 +155,7 @@ def test_each_kernel_plain_at_tile_seams(mode, ambiguous, canonical, nw):
     want_counts = np.bincount(widx // TILE, minlength=ntiles)
 
     words = torch.from_numpy(pack_2bit(codes))
-    key, table, _ = convert.hasher_tensors(h, "cpu")
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
     plane = None if amb is None else convert.ambiguity_plane(amb, codes.size, "cpu")
     before = dict(fused.LAUNCHES)
     scratch, counts = fused.minimizer_tiles(words, codes.size, K, W, table, key[2], canonical,
@@ -208,7 +208,7 @@ def test_builders_vs_jax(name):
     seq = PackedSeqVec.from_codes(rng.integers(0, 4, N, dtype=np.uint8))
     amb = _mask("random", N, rng)
     for mask in (None, amb):
-        got = getattr(smt, name)(K, W).run(seq, ambiguous=mask, device="cpu")
+        got = getattr(smt, name)(K, W).run(convert.seq_from(seq), ambiguous=mask, device="cpu")
         want = getattr(sm, name)(K, W).run(seq, ambiguous=mask)
         assert isinstance(got, smt.Output)
         assert (got.length, got.canonical) == (want.length, want.canonical)
@@ -220,7 +220,7 @@ def test_builders_vs_jax(name):
 @pytest.mark.parametrize("canonical", [False, True])
 def test_superkmer_builder_vs_jax(canonical):
     seq = PackedSeqVec.from_codes(np.random.default_rng(4).integers(0, 4, N, dtype=np.uint8))
-    got = smt.Builder(K, W, canonical).super_kmers().run(seq, device="cpu")
+    got = smt.Builder(K, W, canonical).super_kmers().run(convert.seq_from(seq), device="cpu")
     want = sm.Builder(K, W, canonical).super_kmers().run(seq)
     np.testing.assert_array_equal(got.positions, want.positions)
     np.testing.assert_array_equal(got.superkmer_indices, want.superkmer_indices)

@@ -22,7 +22,7 @@ KW = [(5, 7), (21, 11), (31, 5), (19, 19)]
 
 def _port(codes, k, w, h):
     words = torch.from_numpy(pack_2bit(codes))
-    key, table, _ = convert.hasher_tensors(h, "cpu")
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
     got = pipeline.run_pipeline(words, codes.size, k, w, table, key[2], h.canonical)
     assert got.dtype == torch.int32
     return got.numpy().astype(np.uint32)
@@ -83,7 +83,7 @@ def test_plain_seeded_hasher(canonical):
 def test_kmer_hashes_vs_hash_kmers_np(k, canonical, seed):
     codes = np.random.default_rng(k).integers(0, 4, 700, dtype=np.uint8)
     h = NtHasher(k, canonical=canonical, seed=seed)
-    key, table, _ = convert.hasher_tensors(h, "cpu")
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
     M = torch.from_numpy(codes)[None, :]
     got = pipeline.kmer_hashes_2d(M, table, k, key[2], canonical, C=codes.size)
     np.testing.assert_array_equal(got[0].numpy().astype(np.uint32), h.hash_kmers_np(codes))
