@@ -7,11 +7,15 @@ Counterpart of `simd_minimizers_tpu/api.py`, the same builder shape,
     minimizers(k, w).hasher(MulHasher(k)).run(GenericSeq(text), device="cuda")
     canonical_minimizers(k, w).run_skip_ambiguous_windows(nseq, device="cuda")
 
+    rid, pos = minimizers(k, w).run_batch(reads, device="cuda")
+
 with `Output` and `Builder` of the port's own. `Builder.run` sends the
-sequence (2-bit packed, or the raw bytes of text) and its ambiguity mask,
-as a 1-bit plane, to `device` and runs the port's backend (the Hopper
-kernel on a CUDA device, its plain version on the CPU). `run_scalar` is
-the NumPy oracle (`ops/oracle.py`).
+sequence (2-bit packed, or the raw bytes of text; up to 2^32 chars) and
+its ambiguity mask, as a 1-bit plane, to `device`, runs the port's backend
+(the Hopper kernel on a CUDA device, its plain version on the CPU) and
+brings the result back through pinned host memory. `run_batch` sketches
+many reads in one launch per length bucket (`ops/batch.py`). `run_scalar`
+is the NumPy oracle (`ops/oracle.py`).
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ import torch
 
 from . import convert
 from .hashers import KmerHasher, NtHasher
-from .ops import backend, oracle, pipeline, values
-from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, as_seq
+from .ops import backend, fused, oracle, pipeline, values
+from .seq.packed import (_ASCII_TO_CODE, _IS_ACGT, AsciiSeq, GenericSeq, PackedNSeqVec,
+                         PackedSeq, as_seq)
+from .utils.profiling import stage
 
 _SYNCMER_NONE, _SYNCMER_CLOSED, _SYNCMER_OPEN = 0, 1, 2
 
@@ -124,6 +130,8 @@ class Builder:
         pipeline.assert_no_superkmer_ambiguity(mode, ambiguous is not None)
         seq = as_seq(seq)
         text = isinstance(seq, GenericSeq)
+        n = len(seq)
+        fused.check_sequence_length(n)  # before anything crosses the bus
         if text:
             chars = convert.text_bytes(seq, device)
         elif isinstance(seq, (PackedSeq, AsciiSeq)):
@@ -132,14 +140,12 @@ class Builder:
             raise TypeError(f"Builder.run takes a PackedSeq, AsciiSeq or GenericSeq, not "
                             f"{type(seq).__name__} (run_skip_ambiguous_windows takes a "
                             "PackedNSeqVec)")
-        n = len(seq)
         amb = None if ambiguous is None else convert.ambiguity_plane(ambiguous, n, device)
         res = backend.sketch(chars, n, self.k, self.w, self._resolved_hasher(), mode, amb, text)
-        # positions and indices are < 2^31: the uint32 views copy nothing
         if mode == pipeline.MODE_SUPERKMERS:
-            pos, idx = (t.cpu().numpy().view(np.uint32) for t in res)
+            pos, idx = convert.Download(res).result()
             return Output(self._out_length, seq, pos, idx, canonical=self.canonical)
-        positions = res.cpu().numpy().view(np.uint32)
+        positions = convert.Download(res).result()
         return Output(self._out_length, seq, positions, canonical=self.canonical)
 
     def run_scalar(self, seq, ambiguous: np.ndarray | None = None) -> Output:
@@ -175,8 +181,33 @@ class Builder:
                                         device: torch.device | str = "cuda") -> np.ndarray:
         return self.run_skip_ambiguous_windows(nseq, device=device).positions
 
-    def run_batch(self, reads, ambiguous=None):
-        raise NotImplementedError("batched reads are not ported yet (ROADMAP A5)")
+    def run_batch(self, reads, ambiguous=None, device: torch.device | str = "cuda"):
+        """Sketch a batch of reads in one launch per length bucket on
+        `device` (ops/batch.sketch_batch).
+
+        reads: a list of sequences (any type `as_seq` takes), or a (B, L)
+        uint8 matrix whose rows are such byte strings. `ambiguous`: one
+        mask per read, or None. Returns (read_ids, positions[, super-k-mer
+        indices]), np.uint32, ordered by read, positions local to each read.
+        Reads shorter than l = k + w - 1 have no windows and are dropped
+        from the output entirely (their ids never appear).
+        """
+        # the reference cannot express it: rejected as the JAX builder does
+        pipeline.assert_no_superkmer_ambiguity(self._mode, ambiguous is not None)
+        with stage("fold reads to codes"):
+            if isinstance(reads, np.ndarray) and reads.ndim == 2:
+                # as_seq row by row, vectorized: ACGT rows are DNA, others text
+                rows = np.asarray(reads, dtype=np.uint8)
+                acgt = _IS_ACGT[rows].all(axis=1)
+                codes = np.where(acgt[:, None], _ASCII_TO_CODE[rows], rows)
+                dna = bool(acgt.all())
+            else:
+                seqs = [as_seq(r) for r in reads]
+                codes = [s.codes() for s in seqs]
+                # the seq types decide DNA vs general text exactly: no O(n) probe
+                dna = not any(isinstance(s, GenericSeq) for s in seqs)
+        return backend.sketch_batch(codes, self.k, self.w, self._resolved_hasher(), self._mode,
+                                    ambiguous, dna=dna, device=device)
 
 
 def minimizers(k: int, w: int) -> Builder:

@@ -1,7 +1,7 @@
 """What the port carries across: the hasher's state, the sequence and its
-ambiguity mask, as tensors on one `torch.device`; and the two functions
-that rebuild the port's hasher and sequence from any object of the same
-shape (the JAX package's, for one).
+ambiguity mask, as tensors on one `torch.device`, and the results back to
+the host; and the two functions that rebuild the port's hasher and
+sequence from any object of the same shape (the JAX package's, for one).
 
 `hasher_tensors` is the counterpart of the JAX package's
 `ops/pipeline.hasher_jit_args`: where that hands the kernel the nt table
@@ -19,6 +19,7 @@ import torch
 from .hashers import AntiLexHasher, KmerHasher, MulHasher, NtHasher
 from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, PackedSeqVec, pack_2bit
 from .utils.device import require_cuda
+from .utils.profiling import stage
 
 _HASHERS = {cls.kind: cls for cls in (NtHasher, MulHasher, AntiLexHasher)}
 TABLE_ENTRIES = {False: 4, True: 256}  # per-char table entries: 2-bit codes, text bytes
@@ -105,12 +106,35 @@ def packed_words(seq, device: torch.device | str) -> torch.Tensor:
 def text_bytes(seq: GenericSeq, device: torch.device | str) -> torch.Tensor:
     """The raw bytes of a `GenericSeq` (1 B per char) in a uint8 tensor on
     `device`; a contiguous array crosses without a host copy."""
+    return code_bytes(seq.seq, device)
+
+
+def code_bytes(codes, device: torch.device | str) -> torch.Tensor:
+    """A uint8 array of one char per byte (2-bit codes, as the FASTA reader
+    and the batch engine make them, or text) in a uint8 tensor on `device`:
+    1 B per char over the bus and no host packing; a contiguous array
+    crosses without a host copy."""
     device = require_cuda(device)
-    data = np.ascontiguousarray(seq.seq, dtype=np.uint8)
-    with warnings.catch_warnings():
+    data = np.ascontiguousarray(codes, dtype=np.uint8)
+    with stage("upload"), warnings.catch_warnings():
         # bytes input is read-only; no path of the port writes to it
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
         return torch.from_numpy(data).to(device)
+
+
+def is_dna(codes: np.ndarray) -> bool:
+    """Whether a uint8 array holds 2-bit codes (every value <= 3): the JAX
+    package's `probe_is_dna`, an O(n) host scan for inputs without a type."""
+    return codes.size == 0 or int(codes.max()) <= 3
+
+
+def span(buf: torch.Tensor, start: int, end: int, chars_per_byte: int) -> torch.Tensor:
+    """The bytes of `buf` that hold chars [start, end), as a view (no copy):
+    a 2-bit stream (4 chars per byte), a 1-bit plane (8) or bytes (1);
+    `start` must fall on a byte."""
+    if start % chars_per_byte:
+        raise ValueError(f"char {start} does not start a byte of {chars_per_byte} chars")
+    return buf[start // chars_per_byte:-(-end // chars_per_byte)]
 
 
 def ambiguity_plane(ambiguous, n: int, device: torch.device | str) -> torch.Tensor:
@@ -126,4 +150,68 @@ def ambiguity_plane(ambiguous, n: int, device: torch.device | str) -> torch.Tens
         raise TypeError(f"the ambiguity mask must be bool or uint8, got {mask.dtype}")
     if mask.shape != (n,):
         raise ValueError(f"the ambiguity mask has shape {mask.shape}, the sequence {n} bases")
-    return torch.from_numpy(np.packbits(mask, bitorder="little")).to(device)
+    with stage("mask packing"):
+        plane = np.packbits(mask, bitorder="little")
+    with stage("upload"):
+        return torch.from_numpy(plane).to(device)
+
+
+def padding_plane(lens, stride: int, device: torch.device | str,
+                  ambiguous: torch.Tensor | None = None) -> torch.Tensor:
+    """The 1-bit plane of a batch whose read i holds chars [i * stride,
+    i * stride + lens[i]): every padding char flagged (so no window spans
+    two reads), built on `device` from the lengths alone, or'ed with the
+    reads' own flags `ambiguous` (uint8, one per char of the batch, on
+    `device`) if given. The plane covers len(lens) * stride chars, rounded
+    up to whole bytes with flagged chars."""
+    device = require_cuda(device)
+    lens_t = torch.as_tensor(np.asarray(lens, np.int64), device=device)
+    flags = torch.arange(stride, device=device) >= lens_t[:, None]
+    flags = flags.reshape(-1)
+    if ambiguous is not None:
+        flags |= ambiguous.to(torch.bool)
+    pad = -flags.numel() % 8
+    if pad:
+        flags = torch.cat([flags, flags.new_ones(pad)])
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8, device=device)
+    return (flags.view(-1, 8).to(torch.uint8) * weights).sum(1, dtype=torch.uint8)
+
+
+class Download:
+    """A result on its way to the host: `Download(result, stream)` starts
+    the copy of a tensor (or a tuple of tensors) holding u32 bits, and
+    `.result()` returns it as np.uint32 arrays of the same structure.
+
+    From a CUDA tensor the copy goes into pinned host memory with
+    non_blocking=True, on `stream` (default: the current stream) after the
+    work that produced the tensor, so it overlaps later kernels on other
+    streams. `.result()` waits for the copy's event and returns views of the
+    pinned buffers, with no host copy; PyTorch's pinned-memory allocator
+    takes a buffer back when its last array is dropped and hands it out
+    again only after the copy's event has fired. A CPU tensor needs no
+    copy."""
+
+    def __init__(self, result, stream: torch.cuda.Stream | None = None):
+        self.tuple = isinstance(result, tuple)
+        tensors = result if self.tuple else (result,)
+        self.event = None
+        if tensors[0].device.type != "cuda":
+            self.host = tensors
+            return
+        stream = stream or torch.cuda.current_stream(tensors[0].device)
+        stream.wait_stream(torch.cuda.current_stream(tensors[0].device))
+        with stage("download"), torch.cuda.stream(stream):
+            self.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                              for t in tensors)
+            for h, t in zip(self.host, tensors):
+                h.copy_(t, non_blocking=True)
+                t.record_stream(stream)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+
+    def result(self):
+        if self.event is not None:
+            self.event.synchronize()
+        out = tuple(h.numpy().view(np.uint32) for h in self.host)
+        self.host = None
+        return out if self.tuple else out[0]

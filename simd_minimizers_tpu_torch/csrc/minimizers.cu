@@ -1,5 +1,5 @@
-// Minimizer positions, super-k-mers and syncmers of 2-bit packed DNA and of
-// general text on Hopper (sm_90a).
+// Minimizer positions, super-k-mers and syncmers of 2-bit packed DNA, of
+// 2-bit codes one per byte, and of general text on Hopper (sm_90a).
 //
 // Replaces the one Pallas TPU kernel of the JAX package:
 // simd_minimizers_tpu/ops/fused.py `_make_kernel.kernel`, launched through
@@ -14,46 +14,52 @@
 // Three launches:
 //   1. minimizer_tiles<CANONICAL, MODE, AMB>: one block per tile of TILE
 //      windows. It reads the tile's chars (plus an l+3 char halo) straight
-//      from the plain 2-bit byte stream, or from the raw bytes of text
-//      (`text`; the TPU's byte-striped `striped8` input and the decode of
-//      `lane_matrix_from`), one char per shared byte either way, and with
-//      AMB the ambiguity bits of the same chars from a 1-bit plane; hashes
+//      from the plain 2-bit byte stream, or one char per byte (`bytes_in`):
+//      the raw bytes of text (`text`; the TPU's byte-striped `striped8`
+//      input and the decode of `lane_matrix_from`) or 2-bit codes, of which
+//      only the low two bits are read (the code bytes that the FASTA reader
+//      and the batch engine produce, shipped without host packing), one
+//      char per shared byte either way, and with AMB the ambiguity bits of
+//      the same chars from a 1-bit plane; hashes
 //      every k-mer with an O(1) rolling update per thread run, takes the
 //      packed (top16 | column) sliding minima, the strand blend, the
 //      SKIPPED mask and the keep mask of MODE (recomputing the sel of the
 //      window before the tile for the dedup, so no state crosses blocks),
 //      and left-packs the kept values with a popc + block scan: positions
 //      (MINIMIZERS), positions and window indices (SUPERKMERS, two planes)
-//      or window indices (SYNCMERS). Plane p of tile t goes to
-//      scratch[(p * ntiles + t) * TILE], the tile's count to counts[t].
+//      or window indices (SYNCMERS), each plus the launch's u32 `offset`
+//      (the TPU kernel's offset bits: a span's first char in its sequence),
+//      added after every comparison so that those stay launch-local. Plane
+//      p of tile t goes to scratch[(p * ntiles + t) * TILE], the tile's
+//      count to counts[t].
 //      The hash (the TPU's `_hash_windows`) is one of two block-uniform
 //      branches: nt and mul are one fold, XOR_i rotl(F[c_i], i + rot), over
 //      per-char forward and complement values F and R that the host builds
 //      (4 words each for 2-bit codes, 256 each for text bytes, in dynamic
 //      shared memory behind the tile's other data); antilex (`antilex`) reads
-//      no table and packs the first min(k, 16) chars with a rolling shift on
-//      each strand.
+//      no table and packs the low two bits of the first min(k, 16) chars with
+//      a rolling shift on each strand.
 //   2. tile_offsets: one block takes the exclusive scan of the counts and
 //      writes the total behind them (the running total the TPU kept in SMEM).
 //   3. tile_append: copies each tile's run of each plane to its global offset.
 // Each has its own C entry point (and Python wrapper, ops/fused.py); the
 // shared-memory limit of every minimizer_tiles instance is raised once per
-// card (smt_init). Only the instances the Python side can reach are built
-// (tiles_instance): super-k-mers never carry an ambiguity plane (the
-// reference cannot express it), so no SUPERKMERS instance has AMB. Input
-// kind and hasher are kernel arguments, not template parameters, so they
-// add no instance to the build. The instances do not add up in build time:
-// nvcc optimises them in parallel (--split-compile, ops/_build.py).
+// card (smt_init). All 12 strand x mode x ambiguity-plane instances are built
+// (tiles_instance): super-k-mers with a plane are the batch engine's padding
+// plane and the skip-ambiguous super-k-mers of backend.sketch. Input kind
+// and hasher are kernel arguments, not template parameters, so they add no
+// instance to the build. The instances do not add up in build time: nvcc
+// optimises them in parallel (--split-compile, ops/_build.py).
 //
 // What bounds it on the H100: it reads 0.25 B/char of 2-bit input or 1
-// B/char of text (plus 0.125 B/char of ambiguity bits) and writes about 4 B
-// per kept value twice (scratch, then output) plus 4 B reread, so at the
-// density 2/(w+1) of random input it moves under 3 B/char per plane: far
-// below the card's 3.35 TB/s. The work is integer ALU: per k-mer two table
-// lookups in shared memory and a few funnel shifts (rolling hash, both
-// strands; antilex: two shifts and an or per strand), per window 2w
-// unsigned mins and a sliding T/G count. The function itself needs about 29
-// operations per window canonical and 14 forward at k=21 (chip_smoke.py's
+// B/char of code bytes or text (plus 0.125 B/char of ambiguity bits) and
+// writes about 4 B per kept value twice (scratch, then output) plus 4 B
+// reread, so at the density 2/(w+1) of random input it moves under 3 B/char
+// per plane: far below the card's 3.35 TB/s. The work is integer ALU: per
+// k-mer two table lookups in shared memory and a few funnel shifts (rolling
+// hash, both strands; antilex: two shifts and an or per strand), per window
+// 2w unsigned mins and a sliding T/G count. The function itself needs about
+// 29 operations per window canonical and 14 forward at k=21 (chip_smoke.py's
 // bound, with an O(1) sliding minimum); the w mins per arm are the main
 // excess over it (ROADMAP A3, large w). The design keeps every
 // intermediate in shared memory or registers, makes the hash O(1) per k-mer
@@ -144,9 +150,10 @@ __device__ __forceinline__ int block_inclusive_scan(int x, int* warp_sums, int* 
 template <bool CANONICAL, int MODE, bool AMB>
 __global__ void __launch_bounds__(THREADS)
 minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int k, int w,
-                int text, int antilex, const long long* __restrict__ table, int rot,
-                const uint8_t* __restrict__ amb, long long amb_nbytes, int sync_lo, int sync_hi,
-                int* __restrict__ scratch, int* __restrict__ counts) {
+                int bytes_in, int text, int antilex, const long long* __restrict__ table,
+                int rot, const uint8_t* __restrict__ amb, long long amb_nbytes, int sync_lo,
+                int sync_hi, uint32_t offset, int* __restrict__ scratch,
+                int* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[THREADS / 32];
 
@@ -167,12 +174,14 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
 
   // B1: one char per shared byte. 2-bit input: decode whole packed bytes
   // (base i at bits 2 * (i % 4)), chars outside [0, nbytes * 4) reading as
-  // 0. Text: copy the bytes, four at a time where they are aligned and in
-  // range, chars outside [0, nbytes) reading as 0. Such chars only reach
-  // k-mers and windows masked below.
-  if (text) {
+  // 0. One char per byte: copy the bytes, four at a time where they are
+  // aligned and in range, chars outside [0, nbytes) reading as 0, and keep
+  // the low two bits of a code byte (its table has 4 entries). Such chars
+  // only reach k-mers and windows masked below.
+  if (bytes_in) {
     const long long g0 = t0 - 4;  // a multiple of 4
     const bool aligned = (reinterpret_cast<uintptr_t>(words) & 3) == 0;
+    const uint32_t keep = text ? 0xFFFFFFFFu : 0x03030303u;
     for (int bi = tid; bi < nchars / 4; bi += THREADS) {
       const long long gb = g0 + 4LL * bi;
       uint32_t x = 0;
@@ -182,7 +191,7 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
         for (int j = 0; j < 4; ++j)
           if (gb + j >= 0 && gb + j < nbytes) x |= (uint32_t)words[gb + j] << (8 * j);
       }
-      reinterpret_cast<uint32_t*>(s_c)[bi] = x;
+      reinterpret_cast<uint32_t*>(s_c)[bi] = x & keep;
     }
   } else {
     const long long b0 = t0 / 4 - 1;
@@ -326,6 +335,7 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
     sel[q] = window_sel(v, cnt, (skip >> (q + 1)) & 1u);
     if (MODE == SYNCMERS) {
       // SKIPPED and INVALID never equal gw + sync_*: gw + w - 1 < n < 2^31
+      // (values are launch-local here; `offset` is added at emission)
       const uint32_t gw = (uint32_t)(t0 + v);
       if (t0 + v < nw && (sel[q] == gw + sync_lo || sel[q] == gw + sync_hi)) keep |= 1u << q;
     } else {
@@ -335,9 +345,9 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
   }
 
   // B7 (+ B9): left-pack the kept values of the tile in window order, one
-  // staging plane of TILE words each. The first barrier of the scan also
-  // ends every read of the keys, so the staging planes may reuse their
-  // space.
+  // staging plane of TILE words each, each value plus `offset` (u32 bits in
+  // an int). The first barrier of the scan also ends every read of the
+  // keys, so the staging planes may reuse their space.
   const int mine = __popc(keep);
   int total;
   int at = block_inclusive_scan<THREADS>(mine, s_warp, &total) - mine;
@@ -346,9 +356,9 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
 #pragma unroll
   for (int q = 0; q < WPT; ++q)
     if ((keep >> q) & 1u) {
-      const int gw = (int)(t0 + vp + 1 + q);
-      s_out[at] = MODE == SYNCMERS ? gw : (int)sel[q];
-      if (MODE == SUPERKMERS) s_idx[at] = gw;
+      const uint32_t gw = (uint32_t)(t0 + vp + 1 + q);
+      s_out[at] = (int)((MODE == SYNCMERS ? gw : sel[q]) + offset);
+      if (MODE == SUPERKMERS) s_idx[at] = (int)(gw + offset);
       ++at;
     }
   __syncthreads();
@@ -391,18 +401,18 @@ tile_append(const int* __restrict__ scratch, const int* __restrict__ counts,
   for (int i = threadIdx.x; i < c; i += THREADS) dst[i] = src[i];
 }
 
-using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, int, int,
-                             const long long*, int, const uint8_t*, long long, int, int, int*,
-                             int*);
+using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, int, int, int,
+                             const long long*, int, const uint8_t*, long long, int, int,
+                             uint32_t, int*, int*);
 
-// The instances built; null for a combination that has none.
+// The instances built; null for a mode that has none.
 template <bool C>
 TilesKernel tiles_instance(int mode, bool amb) {
   switch (mode) {
     case MINIMIZERS:
       return amb ? &minimizer_tiles<C, MINIMIZERS, true> : &minimizer_tiles<C, MINIMIZERS, false>;
     case SUPERKMERS:
-      return amb ? nullptr : &minimizer_tiles<C, SUPERKMERS, false>;
+      return amb ? &minimizer_tiles<C, SUPERKMERS, true> : &minimizer_tiles<C, SUPERKMERS, false>;
     case SYNCMERS:
       return amb ? &minimizer_tiles<C, SYNCMERS, true> : &minimizer_tiles<C, SYNCMERS, false>;
     default:
@@ -445,22 +455,27 @@ int smt_init(int device) {
 }
 
 // mode: 0 minimizers, 1 super-k-mers, 2 syncmers (kept where sel - gw is
-// sync_lo or sync_hi). amb: the 1-bit ambiguity plane of amb_nbytes bytes,
-// or null for none. scratch holds ntiles * TILE ints per plane (two for
-// super-k-mers).
+// sync_lo or sync_hi). bytes_in: one char per byte (text bytes, or 2-bit
+// codes without text), else the 2-bit byte stream; text: the tables hold
+// 256 entries, else 4. amb: the 1-bit ambiguity plane of amb_nbytes bytes,
+// or null for none. offset: added (mod 2^32) to every emitted value.
+// scratch holds ntiles * TILE ints per plane (two for super-k-mers).
 int smt_minimizer_tiles(int device, const void* words, long long nbytes, int n, int k, int w,
-                        int canonical, int mode, int text, int antilex, const void* table,
-                        int rot, const void* amb, long long amb_nbytes, int sync_lo, int sync_hi,
-                        void* scratch, void* counts, int ntiles, void* stream) {
+                        int canonical, int mode, int bytes_in, int text, int antilex,
+                        const void* table, int rot, const void* amb, long long amb_nbytes,
+                        int sync_lo, int sync_hi, unsigned int offset, void* scratch,
+                        void* counts, int ntiles, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const TilesKernel kern = tiles_instance(canonical != 0, mode, amb != nullptr);
-  if (kern == nullptr || (table == nullptr && !antilex)) return (int)cudaErrorInvalidValue;
+  if (kern == nullptr || (table == nullptr && !antilex) || (text && !bytes_in))
+    return (int)cudaErrorInvalidValue;
   const size_t smem =
       tile_smem_bytes(k, w, canonical != 0, mode, amb != nullptr, text != 0, antilex != 0);
   kern<<<ntiles, THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)words, nbytes, n, k, w, text, antilex, (const long long*)table, rot,
-      (const uint8_t*)amb, amb_nbytes, sync_lo, sync_hi, (int*)scratch, (int*)counts);
+      (const uint8_t*)words, nbytes, n, k, w, bytes_in, text, antilex,
+      (const long long*)table, rot, (const uint8_t*)amb, amb_nbytes, sync_lo, sync_hi,
+      (uint32_t)offset, (int*)scratch, (int*)counts);
   return (int)cudaGetLastError();
 }
 

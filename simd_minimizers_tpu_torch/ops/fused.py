@@ -1,30 +1,47 @@
 """The Hopper minimizer kernels' wrappers, their launch counts and their
-geometry gate.
+geometry gate, and the drivers that split long sequences and many records
+into launches.
 
 Counterpart of `simd_minimizers_tpu/ops/fused.py` (`fused_supported`,
-`_invoke_pallas`, `_fused_launch`, `_fused_harvest`, `fused_sketch`). The
-kernels are `csrc/minimizers.cu`; see its header for the design. They read
-the plain 2-bit byte stream or the raw text bytes, so the TPU's row- and
-byte-striped repacks have no counterpart here.
+`_invoke_pallas`, `_fused_launch`, `_fused_harvest`, `fused_sketch`,
+`_LaunchWave`, `sketch_long`, `sketch_records`). The kernels are
+`csrc/minimizers.cu`; see its header for the design. They read the plain
+2-bit byte stream, 2-bit codes one per byte, or the raw text bytes, so the
+TPU's row- and byte-striped repacks have no counterpart here.
 
-`fused_sketch` chains three wrappers, one per kernel: `minimizer_tiles`,
-`tile_offsets` and `tile_append`. On a CUDA tensor each launches its kernel
-or raises; on a CPU tensor each runs its plain version (`ops/pipeline.py`).
+`fused_sketch` is `_fused_launch` (`minimizer_tiles`, `tile_offsets`; no
+host sync) then `_fused_harvest` (the total, `tile_append`): three
+wrappers, one per kernel. On a CUDA tensor each launches its kernel or
+raises; on a CPU tensor each runs its plain version (`ops/pipeline.py`).
 `minimizer_tiles` has one kernel instance per strand, mode family
-(minimizers, super-k-mers, syncmers) and ambiguity plane (none for
-super-k-mers), each with its own count in `LAUNCHES`. The input kind (2-bit
-DNA or text) and the hasher (the nt / mul fold over per-char tables, or
-antilex) are block-uniform arguments of every instance.
+(minimizers, super-k-mers, syncmers) and ambiguity plane, each with its own
+count in `LAUNCHES`. The input kind (2-bit DNA, packed or one code per
+byte, or text), the hasher (the nt / mul fold over per-char tables, or
+antilex) and the u32 offset of the launch's first char are block-uniform
+arguments of every instance.
+
+The drivers keep the JAX package's contracts (spans overlap by l - 1 chars
+and merge at their seams exactly, syncmer spans concatenate, positions are
+u32) but not its TPU design: the input is uploaded once and every span is
+a view of it that starts at a multiple of TILE windows (so on a byte of the
+2-bit stream and of the 1-bit plane), launches need no grid buckets, and a
+record's results come down through pinned host memory on a side stream
+while the next launches run.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import convert
+from ..parallel.multihost import concat, merge_adjacent_shards
+from ..utils.device import require_cuda
+from ..utils.profiling import stage
 from . import _build, pipeline
 
 TILE = 4096  # windows per thread block; csrc/minimizers.cu TILE
+SPAN_CHARS = 1 << 29  # chars per span of a long sequence or record (the JAX package's)
 # dynamic shared memory one block may use on Hopper: 227 KiB less the
 # kernel's static shared memory (the scan's warp sums, 32 B)
 _SMEM_MAX = 232448 - 32
@@ -45,14 +62,14 @@ def instance_name(canonical: bool, mode: str, ambiguous: bool) -> str:
 
 # Launches per kernel instance, counted where each is launched (CUDA tensors
 # only). Every instance csrc/minimizers.cu builds (tiles_instance) has an
-# entry: super-k-mers have none with an ambiguity plane.
+# entry: 2 strands x 3 mode families x with and without an ambiguity plane.
 LAUNCHES = {instance_name(c, m, a): 0
-            for m, a in [(pipeline.MODE_MINIMIZERS, False), (pipeline.MODE_MINIMIZERS, True),
-                         (pipeline.MODE_SUPERKMERS, False),
-                         (pipeline.MODE_CLOSED_SYNCMERS, False),
-                         (pipeline.MODE_CLOSED_SYNCMERS, True)]
-            for c in (True, False)}
+            for m in (pipeline.MODE_MINIMIZERS, pipeline.MODE_SUPERKMERS,
+                      pipeline.MODE_CLOSED_SYNCMERS)
+            for a in (False, True) for c in (True, False)}
 LAUNCHES.update({"tile_offsets": 0, "tile_append": 0})
+MAX_LAUNCH_CHARS = 1 << 31  # chars of one launch: in-kernel values are below 2^31
+MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 
 _ready_devices: set[int] = set()
 
@@ -127,27 +144,31 @@ def _check_tables(tables: torch.Tensor | None, kind: str, text: bool) -> None:
 def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                     rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                     ambiguous: torch.Tensor | None = None, *, text: bool = False,
-                    kind: str = "nt"):
+                    kind: str = "nt", offset: int = 0, byte_codes: bool = False):
     """Kernel 1: (scratch, counts) for the first n chars of `chars` (uint8:
-    the 2-bit byte stream of convert.packed_words, or with `text` the bytes
-    of convert.text_bytes), hashed by `kind` (the nt or mul fold over the
-    per-char `tables` of convert.hasher_tensors, or antilex, which takes
+    the 2-bit byte stream of convert.packed_words, with `byte_codes` 2-bit
+    codes one per byte, of which the low two bits count, or with `text` the
+    bytes of convert.text_bytes), hashed by `kind` (the nt or mul fold over
+    the per-char `tables` of convert.hasher_tensors, or antilex, which takes
     None) in `mode`, skipping the windows that hold a char flagged in the
     1-bit plane `ambiguous` (uint8, convert.ambiguity_plane) if one is
-    given. Tile t of TILE windows leaves its kept values in
-    scratch[..., t * TILE:][:counts[t]] (int32): positions (minimizers),
-    window indices (syncmers), or both as the two rows of a
+    given. Tile t of TILE windows leaves its kept values plus `offset` (u32
+    bits) in scratch[..., t * TILE:][:counts[t]] (int32): positions
+    (minimizers), window indices (syncmers), or both as the two rows of a
     (2, ntiles * TILE) scratch (super-k-mers)."""
     if chars.dtype != torch.uint8:
         raise TypeError(f"chars must be uint8, got {chars.dtype}")
     if mode not in _KERNEL_MODE:
         raise ValueError(f"unknown mode {mode!r}")
-    pipeline.assert_no_superkmer_ambiguity(mode, ambiguous is not None)
     if ambiguous is not None and (ambiguous.dtype != torch.uint8
                                   or ambiguous.device != chars.device):
         raise ValueError("ambiguous must be a uint8 tensor on the device of chars")
-    if n >= 1 << 31:
-        raise NotImplementedError("inputs of 2^31 chars or more (sketch_long) are ROADMAP A4")
+    if text and byte_codes:
+        raise ValueError("chars are text bytes or 2-bit code bytes, not both")
+    if not 0 <= offset < 1 << 32:
+        raise ValueError(f"offset {offset} is not a u32")
+    if n >= MAX_LAUNCH_CHARS:  # the JAX package's check (_fused_launch)
+        raise AssertionError("fused kernel handles < 2^31 chars per call (see sketch_long)")
     l = k + w - 1
     if canonical and l % 2 == 0:
         raise ValueError(f"window length l={l} must be odd to determine strand")
@@ -158,10 +179,12 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     _check_tables(tables, kind, text)
     if _device_kind(chars) == "cpu":
         return pipeline.minimizer_tiles_plain(chars, n, k, w, tables, rot_offset, canonical, TILE,
-                                              mode, ambiguous, text=text, kind=kind)
+                                              mode, ambiguous, text=text, kind=kind,
+                                              offset=offset, byte_codes=byte_codes)
     if not chars.is_contiguous() or (tables is not None and not tables.is_contiguous()):
         raise ValueError("chars and tables must be contiguous")
-    if chars.numel() * (1 if text else 4) < n:
+    bytes_in = text or byte_codes
+    if chars.numel() * (1 if bytes_in else 4) < n:
         raise ValueError(f"chars must hold n={n} chars")
     if tables is not None and tables.device != chars.device:
         raise ValueError("tables and chars must be on one device")
@@ -179,9 +202,10 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     lo, hi = pipeline.syncmer_offsets(mode, w)
     _check(lib.smt_minimizer_tiles(
         dev.index, chars.data_ptr(), chars.numel(), n, k, w, int(canonical), _KERNEL_MODE[mode],
-        int(text), int(kind == "antilex"), None if tables is None else tables.data_ptr(),
-        rot_offset, None if ambiguous is None else ambiguous.data_ptr(),
-        0 if ambiguous is None else ambiguous.numel(), lo, hi, scratch.data_ptr(),
+        int(bytes_in), int(text), int(kind == "antilex"),
+        None if tables is None else tables.data_ptr(), rot_offset,
+        None if ambiguous is None else ambiguous.data_ptr(),
+        0 if ambiguous is None else ambiguous.numel(), lo, hi, offset, scratch.data_ptr(),
         counts.data_ptr(), ntiles, torch.cuda.current_stream(dev).cuda_stream),
         "minimizer_tiles")
     LAUNCHES[instance_name(canonical, mode, ambiguous is not None)] += 1
@@ -231,23 +255,264 @@ def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tens
     return out
 
 
+def _fused_launch(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
+                  rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
+                  ambiguous: torch.Tensor | None = None, **kw):
+    """One launch without a host sync: `minimizer_tiles` (arguments as
+    there, `kw` its keywords) and `tile_offsets`; returns the handles
+    (scratch, counts, offsets) that `_fused_harvest` takes."""
+    scratch, counts = minimizer_tiles(chars, n, k, w, tables, rot_offset, canonical, mode,
+                                      ambiguous, **kw)
+    return scratch, counts, tile_offsets(counts)
+
+
+def _fused_harvest(handles, mode: str, cnt: int | None = None):
+    """One launch's values on its device: `tile_append` at the total, which
+    is fetched from the card (the one 4-byte copy to the host) unless the
+    caller already holds it as `cnt` (a wave fetches all its totals in one
+    copy). int32 tensor, or (positions, indices) for super-k-mers."""
+    scratch, counts, offsets = handles
+    total = int(offsets[-1]) if cnt is None else cnt
+    out = tile_append(scratch, counts, offsets, total)
+    return (out[0], out[1]) if mode == pipeline.MODE_SUPERKMERS else out
+
+
 def fused_sketch(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                  rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                  ambiguous: torch.Tensor | None = None, *, text: bool = False,
-                 kind: str = "nt"):
-    """int32 positions (window indices for syncmers), on chars.device, of
-    the first n chars of `chars` (as in `minimizer_tiles`), skipping the
-    windows that hold a char flagged in the 1-bit plane `ambiguous`; for
-    super-k-mers (positions, first-window indices) (counterpart of
-    `_fused_harvest`).
+                 kind: str = "nt", offset: int = 0, byte_codes: bool = False):
+    """int32 positions (window indices for syncmers) plus `offset` (u32
+    bits), on chars.device, of the first n chars of `chars` (as in
+    `minimizer_tiles`), skipping the windows that hold a char flagged in the
+    1-bit plane `ambiguous`; for super-k-mers (positions, first-window
+    indices): `_fused_launch`, then `_fused_harvest`.
 
     A CUDA tensor goes through the three kernels, a CPU tensor through their
     plain versions; any other device raises. Fewer than l = k + w - 1 chars
     give an empty result without a launch.
     """
-    scratch, counts = minimizer_tiles(chars, n, k, w, tables, rot_offset, canonical, mode,
-                                      ambiguous, text=text, kind=kind)
-    offsets = tile_offsets(counts)
-    total = int(offsets[-1])  # the one 4-byte device-to-host copy
-    out = tile_append(scratch, counts, offsets, total)
-    return (out[0], out[1]) if mode == pipeline.MODE_SUPERKMERS else out
+    return _fused_harvest(_fused_launch(chars, n, k, w, tables, rot_offset, canonical, mode,
+                                        ambiguous, text=text, kind=kind, offset=offset,
+                                        byte_codes=byte_codes), mode)
+
+
+class _LaunchWave:
+    """Launches queued without a host sync and harvested in waves.
+
+    Counterpart of the JAX package's `_LaunchWave`: a wave is flushed before
+    a launch that would take its device footprint past `budget` bytes or
+    make it 129 launches, so in-flight scratch stays bounded; a flush
+    fetches every launch's total in one stacked copy and hands each
+    harvested result (device tensors) to `sink(key, result)`. A budget of 0
+    is the eager schedule: each launch is harvested before the next one.
+    """
+
+    MAX_LAUNCHES = 128
+
+    def __init__(self, mode: str, sink, budget: int):
+        self.mode = mode
+        self.sink = sink
+        self.budget = budget
+        self.wave = []  # (key, handles)
+        self.bytes = 0
+
+    @staticmethod
+    def launch_footprint(n: int, l: int, mode: str) -> int:
+        """Device bytes a launch over n chars holds until its harvest: its
+        scratch and, at most as large, its output, per plane."""
+        windows = -(-max(n - l + 1, 0) // TILE) * TILE
+        return 2 * 4 * windows * (2 if mode == pipeline.MODE_SUPERKMERS else 1)
+
+    def submit(self, key, footprint: int, launch) -> None:
+        """Flush first if needed, then enqueue `launch()` (its handles)."""
+        if self.wave and (self.bytes + footprint > self.budget
+                          or len(self.wave) >= self.MAX_LAUNCHES):
+            self.flush()
+        with stage("kernels"):
+            self.wave.append((key, launch()))
+        self.bytes += footprint
+
+    def flush(self) -> None:
+        if not self.wave:
+            return
+        with stage("kernels"):
+            totals = torch.stack([h[2][-1] for _, h in self.wave]).tolist()
+        for (key, handles), cnt in zip(self.wave, totals):
+            with stage("kernels"):
+                res = _fused_harvest(handles, self.mode, cnt)
+            self.sink(key, res)
+        self.wave.clear()
+        self.bytes = 0
+
+
+def span_bounds(n: int, l: int, span_chars: int) -> list[tuple[int, int]]:
+    """(first window, chars) of each launch over a sequence of n chars: one
+    launch if n <= span_chars, else spans of at most span_chars chars that
+    overlap by l - 1, each owning a multiple of TILE windows (the last
+    fewer), so each starts on a byte of the 2-bit stream and of the 1-bit
+    plane. The seam merge makes the result independent of the split."""
+    nw = n - l + 1
+    if nw <= 0:
+        return []
+    if n <= span_chars:
+        return [(0, n)]
+    step = max((span_chars - (l - 1)) // TILE, 1) * TILE
+    return [(s, min(s + step, nw) - 1 + l - s) for s in range(0, nw, step)]
+
+
+def check_sequence_length(n: int) -> None:
+    if n >= MAX_SEQUENCE_CHARS:  # the JAX package's check (sketch_long)
+        raise AssertionError("positions are u32: 2^32 chars max per sequence")
+
+
+class _SeamChars:
+    """Chars of a buffer as the seam merge reads them: `view[a:b]` is a
+    uint8 numpy array of chars [a, b) of `buf` (a numpy array or a tensor
+    on any device, copied to the host): the 0/1 flags of a 1-bit plane
+    (`per` = 8), the 2-bit codes of a 2-bit stream (4), or the bytes (1),
+    of which code bytes keep their low two bits as the kernel does."""
+
+    def __init__(self, buf, per: int, text: bool = False):
+        self.buf, self.per, self.text = buf, per, text
+
+    def __getitem__(self, sl: slice) -> np.ndarray:
+        a, b = sl.start, sl.stop
+        raw = self.buf[a // self.per:-(-b // self.per)]
+        raw = raw.cpu().numpy() if isinstance(raw, torch.Tensor) else np.asarray(raw, np.uint8)
+        if self.per == 1:
+            return raw if self.text else raw & 3
+        bits = np.unpackbits(raw, bitorder="little")
+        vals = bits if self.per == 8 else bits[0::2] | bits[1::2] << 1
+        return vals[a % self.per:a % self.per + b - a]
+
+
+def _merge_spans(parts, starts, mode, k, w, hasher, codes, ambiguous):
+    """The JAX package's span merge: syncmer spans concatenate; the others
+    drop a span's first value where the seam dedups it, with the index plane
+    of super-k-mers in lockstep. parts are device tensors or numpy arrays."""
+    if len(parts) == 1:
+        return parts[0]
+    if mode in pipeline.SYNCMER_MODES:
+        return concat(parts)
+    if mode == pipeline.MODE_SUPERKMERS:
+        return merge_adjacent_shards([p[0] for p in parts], starts, codes, k, w, hasher,
+                                     ambiguous, aux=[p[1] for p in parts])
+    return merge_adjacent_shards(parts, starts, codes, k, w, hasher, ambiguous)
+
+
+def _submit_spans(wave: _LaunchWave, key, chars: torch.Tensor, n: int,
+                  plane: torch.Tensor | None, per: int, span_chars: int, k: int, w: int,
+                  tables, rot: int, canonical: bool, **kw) -> list[int]:
+    """Queue on `wave`, under `key`, one launch per span of a sequence of n
+    chars (`span_bounds`): a view of `chars` (`per` chars per byte) and of
+    the 1-bit `plane`, launched with its first char as the offset (`kw`:
+    minimizer_tiles' keywords). Returns the spans' first windows."""
+    l = k + w - 1
+    bounds = span_bounds(n, l, span_chars)
+    for s, m in bounds:
+        sub = convert.span(chars, s, s + m, per)
+        amb = None if plane is None else convert.span(plane, s, s + m, 8)
+        wave.submit(key, _LaunchWave.launch_footprint(m, l, wave.mode),
+                    lambda: _fused_launch(sub, m, k, w, tables, rot, canonical, wave.mode, amb,
+                                          offset=s, **kw))
+    return [s for s, _ in bounds]
+
+
+def sketch_long(chars: torch.Tensor, n: int, k: int, w: int, hasher,
+                mode: str = pipeline.MODE_MINIMIZERS, ambiguous: torch.Tensor | None = None, *,
+                text: bool = False, byte_codes: bool = False, span_chars: int = SPAN_CHARS,
+                wave_bytes: int = 0):
+    """`fused_sketch` of a sequence of up to 2^32 chars, in spans of at most
+    span_chars chars (`span_bounds`) that are views of `chars` and of the
+    plane `ambiguous`, each launched with its first char as the offset, then
+    merged at the seams (`merge_adjacent_shards`). Results stay on
+    chars.device as int32 tensors holding u32 bits. `wave_bytes` is the
+    launch wave's budget (0: eager, each span harvested before the next is
+    launched)."""
+    check_sequence_length(n)
+    l = k + w - 1
+    (kind, canonical, rot), tables = convert.hasher_tensors(hasher, chars.device, text)
+    kw = {"text": text, "kind": kind, "byte_codes": byte_codes}
+    if n <= span_chars or n < l:
+        return fused_sketch(chars, n, k, w, tables, rot, canonical, mode, ambiguous, **kw)
+    per = 1 if text or byte_codes else 4
+    parts = []
+    wave = _LaunchWave(mode, lambda _key, res: parts.append(res), wave_bytes)
+    starts = _submit_spans(wave, None, chars, n, ambiguous, per, span_chars, k, w, tables, rot,
+                           canonical, **kw)
+    wave.flush()
+    return _merge_spans(parts, starts, mode, k, w, hasher, _SeamChars(chars, per, text),
+                        None if ambiguous is None else _SeamChars(ambiguous, 8))
+
+
+def record_masks(records, ambiguous, mode: str) -> list:
+    """The per-record masks as a list aligned with `records` (None entries
+    allowed), with the JAX package's AssertionErrors for a list of another
+    length and for super-k-mers with a mask."""
+    masks = list(ambiguous) if ambiguous is not None else [None] * len(records)
+    if len(masks) != len(records):
+        raise AssertionError("ambiguous must align with records")
+    pipeline.assert_no_superkmer_ambiguity(mode, any(a is not None for a in masks))
+    return masks
+
+
+def sketch_records(records, k: int, w: int, hasher, mode: str = pipeline.MODE_MINIMIZERS,
+                   ambiguous=None, *, dna: bool | None = None,
+                   device: torch.device | str = "cuda", span_chars: int = SPAN_CHARS,
+                   wave_bytes: int = 4 << 30):
+    """Per-record results (positions, or (positions, super-k-mer indices);
+    record-local np.uint32; empty below one window) of many sequences of
+    uint8 codes (2-bit codes if `dna`, text bytes if not; None probes each
+    record), with the per-record masks `ambiguous` (None entries allowed).
+
+    Each record is uploaded once as bytes and cut into spans like
+    `sketch_long`; the launches of all records go through one
+    `_LaunchWave` of `wave_bytes` (default 4 GiB, the JAX package's
+    SMTPU_RECORDS_WAVE_BYTES), and each harvested span comes down through
+    pinned host memory on a side stream while the next launches run.
+    Bit-identical to sketching each record alone.
+    """
+    return sketch_records_checked(records, k, w, hasher, mode,
+                                  record_masks(records, ambiguous, mode), dna=dna,
+                                  device=device, span_chars=span_chars, wave_bytes=wave_bytes)
+
+
+def sketch_records_checked(records, k: int, w: int, hasher, mode: str, masks: list, *,
+                           dna: bool | None, device: torch.device | str, span_chars: int,
+                           wave_bytes: int):
+    """`sketch_records` with `masks` as `record_masks` returns them."""
+    l = k + w - 1
+    nrec = len(records)
+    device = require_cuda(device)
+    copies = torch.cuda.Stream(device) if device.type == "cuda" else None
+    rec_parts = [[] for _ in range(nrec)]
+    wave = _LaunchWave(mode, lambda ri, res: rec_parts[ri].append(convert.Download(res, copies)),
+                       wave_bytes)
+    tables_for = {}
+    starts = [[] for _ in range(nrec)]
+    texts = [False] * nrec
+    for ri, rec in enumerate(records):
+        codes = np.asarray(rec, dtype=np.uint8)
+        n = codes.shape[0]
+        check_sequence_length(n)
+        if n < l:
+            continue
+        text = texts[ri] = not (dna if dna is not None else convert.is_dna(codes))
+        if text not in tables_for:
+            tables_for[text] = convert.hasher_tensors(hasher, device, text)
+        (kind, canonical, rot), tables = tables_for[text]
+        chars = convert.code_bytes(codes, device)
+        plane = None if masks[ri] is None else convert.ambiguity_plane(masks[ri], n, device)
+        starts[ri] = _submit_spans(wave, ri, chars, n, plane, 1, span_chars, k, w, tables, rot,
+                                   canonical, text=text, kind=kind, byte_codes=not text)
+    wave.flush()
+    empty = np.zeros(0, np.uint32)
+    out = []
+    with stage("seam merge"):
+        for ri, rec in enumerate(records):
+            if not rec_parts[ri]:
+                out.append((empty, empty) if mode == pipeline.MODE_SUPERKMERS else empty)
+                continue
+            out.append(_merge_spans([d.result() for d in rec_parts[ri]], starts[ri], mode, k, w,
+                                    hasher, _SeamChars(rec, 1, texts[ri]), masks[ri]))
+    return out

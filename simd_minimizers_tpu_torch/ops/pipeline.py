@@ -1,9 +1,9 @@
 """The plain PyTorch version of the minimizer kernel.
 
 Counterpart of `simd_minimizers_tpu/ops/pipeline.py` for the port's slice
-(2-bit DNA or text bytes; the nt, mul and antilex hashers; minimizers,
-super-k-mers, closed and open syncmers, with or without an ambiguity
-mask): the same lane matrix with l - 1 char halos, doubling folds for the
+(2-bit DNA, packed or one code per byte, or text bytes; the nt, mul and
+antilex hashers; minimizers, super-k-mers, closed and open syncmers, each
+with or without an ambiguity mask): the same lane matrix with l - 1 char halos, doubling folds for the
 k-mer hash (nt and mul as one fold over per-char value tables,
 convert.char_tables), the T/G count and the ambiguous count, packed
 (top16 | column) sliding minima, strand blend, SKIPPED windows, and the
@@ -13,7 +13,8 @@ and on the card it is what the CUDA kernel (`ops/fused.py`) is held
 against.
 
 u32 values ride in int64 tensors (see ops/layout.py); positions and window
-indices come out as int32 (n < 2^31 per call).
+indices (n < 2^31 per call) plus a u32 `offset` come out as int32 tensors
+holding u32 bits.
 """
 
 from __future__ import annotations
@@ -40,9 +41,13 @@ HASHER_KINDS = ("nt", "mul", "antilex")  # nt and mul: one fold over per-char ta
 
 def assert_no_superkmer_ambiguity(mode: str, has_ambiguity: bool) -> None:
     """Super-k-mers with an ambiguity mask cannot be expressed in the
-    reference; the port rejects the combination as the JAX package does
-    (copy of `simd_minimizers_tpu.ops.pipeline.assert_no_superkmer_ambiguity`,
-    raising its AssertionError even under `python -O`)."""
+    reference's public API; the port's entry points that the JAX package
+    guards with it (Builder.run, Builder.run_batch, sketch_records) reject
+    the combination as it does (copy of
+    `simd_minimizers_tpu.ops.pipeline.assert_no_superkmer_ambiguity`,
+    raising its AssertionError even under `python -O`). Below them the
+    combination runs: SKIPPED is dropped after the dedup, as for
+    minimizers, and the batch engine depends on it for its padding."""
     if mode == MODE_SUPERKMERS and has_ambiguity:
         raise AssertionError("super-k-mers cannot be combined with an ambiguity mask "
                              "(unrepresentable in the reference, src/lib.rs:498-503)")
@@ -76,10 +81,19 @@ def unpack_2bit(words: torch.Tensor, n: int) -> torch.Tensor:
     return ((words[:, None] >> shifts) & 3).reshape(-1)[:n]
 
 
-def unpack_chars(chars: torch.Tensor, n: int, text: bool) -> torch.Tensor:
-    """uint8 codes of the first n chars: the raw bytes of text, or the
-    2-bit codes of a 2-bit byte stream."""
-    return chars[:n] if text else unpack_2bit(chars, n)
+def unpack_chars(chars: torch.Tensor, n: int, text: bool, byte_codes: bool = False
+                 ) -> torch.Tensor:
+    """uint8 codes of the first n chars: the raw bytes of text, the low two
+    bits of code bytes, or the 2-bit codes of a 2-bit byte stream."""
+    if text:
+        return chars[:n]
+    return chars[:n] & 3 if byte_codes else unpack_2bit(chars, n)
+
+
+def u32_bits(values: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """(values + offset) mod 2^32 as int32 holding the u32 bits."""
+    v = (values.to(torch.int64) + offset) & MASK32
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
 def unpack_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
@@ -205,9 +219,11 @@ def selected_window_stream_2d(codes, n, k, w, tables, rot_offset, canonical, C, 
 def kept_windows(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                  rot_offset: int, canonical: bool, mode: str = MODE_MINIMIZERS,
                  ambiguous: torch.Tensor | None = None, *, text: bool = False,
-                 kind: str = "nt") -> tuple[torch.Tensor, torch.Tensor]:
+                 kind: str = "nt", byte_codes: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sel, keep) of the n - l + 1 windows of the first n chars of `chars`
-    (a 2-bit byte stream, or text bytes with `text`) hashed by `kind` with
+    (a 2-bit byte stream, 2-bit codes one per byte with `byte_codes`, or
+    text bytes with `text`) hashed by `kind` with
     the per-char `tables`: the raw selected stream (int64 positions,
     SKIPPED where the window holds a char flagged in the 1-bit plane
     `ambiguous`) and the keep mask of `mode` (counterpart of the
@@ -222,7 +238,7 @@ def kept_windows(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tens
     flat = flat_length(C, R, l)
     dev = chars.device
     codes = torch.zeros(flat, dtype=torch.uint8, device=dev)
-    codes[:n] = unpack_chars(chars, n, text)
+    codes[:n] = unpack_chars(chars, n, text, byte_codes)
     amb = None
     if ambiguous is not None:
         amb = torch.zeros(flat, dtype=torch.uint8, device=dev)
@@ -256,13 +272,13 @@ def _planes(sel: torch.Tensor, mode: str) -> list[torch.Tensor]:
 def run_pipeline(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                  rot_offset: int, canonical: bool, mode: str = MODE_MINIMIZERS,
                  ambiguous: torch.Tensor | None = None, *, text: bool = False,
-                 kind: str = "nt"):
-    """int32 positions (window indices for syncmers), on chars.device, of
-    the first n chars of `chars` (as in `kept_windows`); for super-k-mers
-    (positions, first-window indices)."""
+                 kind: str = "nt", offset: int = 0, byte_codes: bool = False):
+    """int32 positions (window indices for syncmers), each plus `offset`
+    as u32 bits, on chars.device, of the first n chars of `chars` (as in
+    `kept_windows`); for super-k-mers (positions, first-window indices)."""
     sel, keep = kept_windows(chars, n, k, w, tables, rot_offset, canonical, mode, ambiguous,
-                             text=text, kind=kind)
-    out = [p[keep].to(torch.int32) for p in _planes(sel, mode)]
+                             text=text, kind=kind, byte_codes=byte_codes)
+    out = [u32_bits(p[keep], offset) for p in _planes(sel, mode)]
     return tuple(out) if mode == MODE_SUPERKMERS else out[0]
 
 
@@ -272,14 +288,15 @@ def run_pipeline(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tens
 def minimizer_tiles_plain(chars: torch.Tensor, n: int, k: int, w: int,
                           tables: torch.Tensor | None, rot_offset: int, canonical: bool, tile: int,
                           mode: str = MODE_MINIMIZERS, ambiguous: torch.Tensor | None = None, *,
-                          text: bool = False, kind: str = "nt"):
-    """(scratch, counts): tile t's kept values, in window order, in
-    scratch[..., t * tile : t * tile + counts[t]] (int32; the rest of
-    scratch is 0 here and undefined in the kernel), and counts (int32, one
-    per tile of `tile` windows). scratch is (ntiles * tile,), or
+                          text: bool = False, kind: str = "nt", offset: int = 0,
+                          byte_codes: bool = False):
+    """(scratch, counts): tile t's kept values plus `offset` (u32 bits), in
+    window order, in scratch[..., t * tile : t * tile + counts[t]] (int32;
+    the rest of scratch is 0 here and undefined in the kernel), and counts
+    (int32, one per tile of `tile` windows). scratch is (ntiles * tile,), or
     (2, ntiles * tile) for super-k-mers: positions, then window indices."""
     sel, keep = kept_windows(chars, n, k, w, tables, rot_offset, canonical, mode, ambiguous,
-                             text=text, kind=kind)
+                             text=text, kind=kind, byte_codes=byte_codes)
     ntiles = -(-sel.numel() // tile)
     keep2 = torch.zeros(ntiles * tile, dtype=torch.bool, device=chars.device)
     keep2[:keep.numel()] = keep
@@ -289,7 +306,7 @@ def minimizer_tiles_plain(chars: torch.Tensor, n: int, k: int, w: int,
     planes = _planes(sel, mode)
     scratch = torch.zeros(len(planes), ntiles, tile, dtype=torch.int32, device=chars.device)
     for p, values in enumerate(planes):
-        scratch[p, rows, slots] = values[keep].to(torch.int32)
+        scratch[p, rows, slots] = u32_bits(values[keep], offset)
     scratch = scratch.view(len(planes), ntiles * tile)
     return (scratch if mode == MODE_SUPERKMERS else scratch[0]), keep2.sum(1, dtype=torch.int32)
 

@@ -94,10 +94,11 @@ def _raises(fn, exc=NotImplementedError, match="ROADMAP"):
 
 
 def test_out_of_slice_modes_raise():
-    """Super-k-mers, syncmers, skip-ambiguous windows, text and the mul and
-    antilex hashers, each refused until it was ported, run on the CPU and
-    agree with the oracle and the JAX builder; batches, w beyond the
-    kernel's geometry and inputs of 2^31 chars still raise."""
+    """Super-k-mers, syncmers, skip-ambiguous windows, text, the mul and
+    antilex hashers and batches, each refused until it was ported, run on
+    the CPU and agree with the oracle and the JAX builder; w beyond the
+    kernel's geometry still raises, and one launch of 2^31 chars raises the
+    JAX package's AssertionError (sketch_long splits such inputs)."""
     ps = smt.PackedSeqVec.from_ascii(GOLD * 4)
     b = smt.canonical_minimizers(5, 7).super_kmers()
     out, want = b.run(ps, device="cpu"), b.run_scalar(ps)
@@ -119,13 +120,17 @@ def test_out_of_slice_modes_raise():
             got = b.run_once(seq, device="cpu")
             np.testing.assert_array_equal(got, b.run_scalar_once(seq))
             np.testing.assert_array_equal(got, sm.minimizers(5, 7).hasher(jh).run_once(jseq))
-    _raises(lambda: smt.minimizers(5, 7).run_batch([GOLD, GOLD]))
+    got = smt.minimizers(5, 7).run_batch([GOLD, GOLD[:9], GOLD], device="cpu")
+    want = sm.minimizers(5, 7).run_batch([GOLD, GOLD[:9], GOLD])
+    for g, p in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, p)
     _raises(lambda: smt.minimizers(5, 100_000).run(ps, device="cpu"))
     _raises(lambda: smt.minimizers(5, 100_000).run(text, device="cpu"))
     from simd_minimizers_tpu_torch.ops import fused
 
     _raises(lambda: fused.fused_sketch(torch.zeros(4, dtype=torch.uint8), 1 << 31, 21, 11, None,
-                                       0, False, text=True, kind="antilex"))
+                                       0, False, text=True, kind="antilex"),
+            AssertionError, "2\\^31")
 
 
 def test_even_l_canonical_raises():
@@ -159,29 +164,44 @@ def test_run_skip_ambiguous_windows_on_cpu(k, w, n):
 
 
 def test_superkmers_with_ambiguity_raise():
-    """Super-k-mers with an ambiguity mask: the reference cannot express it,
-    and both packages refuse exactly this combination with AssertionError."""
+    """Super-k-mers with an ambiguity mask: the reference's public API
+    cannot express it, and both packages refuse the combination with
+    AssertionError exactly where the JAX package does (Builder.run,
+    Builder.run_batch, backend.sketch_records); below those entry points
+    (backend.sketch) it runs in both, SKIPPED dropped after the dedup, and
+    the two agree (k=5, w=7, canonical nt, 3,000 bases, 1% ambiguous)."""
+    from simd_minimizers_tpu.ops import backend as jbackend
+    from simd_minimizers_tpu_torch.ops import backend, pipeline
+
     amb = np.zeros(len(GOLD) * 4, bool)
     amb[5] = True
     for pkg, ps in ((smt, smt.PackedSeqVec.from_ascii(GOLD * 4)),
                     (sm, PackedSeqVec.from_ascii(GOLD * 4))):
-        run = pkg.canonical_minimizers(5, 7).super_kmers().run
+        b = pkg.canonical_minimizers(5, 7).super_kmers()
         kw = {"device": "cpu"} if pkg is smt else {}
         with pytest.raises(AssertionError, match="cannot be combined with an ambiguity mask"):
-            run(ps, ambiguous=amb, **kw)
-    from simd_minimizers_tpu_torch.ops import backend, pipeline
+            b.run(ps, ambiguous=amb, **kw)
+        with pytest.raises(AssertionError, match="cannot be combined with an ambiguity mask"):
+            b.run_batch([GOLD * 4], ambiguous=[amb], **kw)
+    for bk in (backend, jbackend):
+        kw = {"device": "cpu"} if bk is backend else {}
+        h = (smt if bk is backend else sm).NtHasher(5, canonical=True)
+        with pytest.raises(AssertionError, match="cannot be combined with an ambiguity mask"):
+            bk.sketch_records([np.zeros(50, np.uint8)], 5, 7, h, pipeline.MODE_SUPERKMERS,
+                              [np.zeros(50, np.uint8)], **kw)
 
-    ps = smt.PackedSeqVec.from_ascii(GOLD * 4)
-    words = convert.packed_words(ps, "cpu")
-    plane = convert.ambiguity_plane(amb, len(ps), "cpu")
+    rng = np.random.default_rng(3000)
+    codes = rng.integers(0, 4, 3000, dtype=np.uint8)
+    mask = rng.random(3000) < 0.01
+    ps = smt.PackedSeqVec.from_codes(codes)
     h = smt.NtHasher(5, canonical=True)
-    with pytest.raises(AssertionError, match="cannot be combined with an ambiguity mask"):
-        backend.sketch(words, len(ps), 5, 7, h, pipeline.MODE_SUPERKMERS, plane)
-    # the same mask with every other mode, and super-k-mers without it, run
-    for mode in (pipeline.MODE_MINIMIZERS, pipeline.MODE_CLOSED_SYNCMERS,
-                 pipeline.MODE_OPEN_SYNCMERS):
-        backend.sketch(words, len(ps), 5, 7, h, mode, plane)
-    backend.sketch(words, len(ps), 5, 7, h, pipeline.MODE_SUPERKMERS)
+    got = backend.sketch(convert.packed_words(ps, "cpu"), 3000, 5, 7, h,
+                         pipeline.MODE_SUPERKMERS, convert.ambiguity_plane(mask, 3000, "cpu"))
+    want = jbackend.sketch(codes, 5, 7, NtHasher(5, canonical=True),
+                           mode=pipeline.MODE_SUPERKMERS, ambiguous_np=mask.astype(np.uint8))
+    assert want[0].size > 600
+    for g, p in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), p)
 
 
 def test_run_scalar_is_the_oracle():
@@ -193,9 +213,21 @@ def test_imports_without_jax():
     """The port runs with neither JAX nor the JAX package importable."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['simd_minimizers_tpu'] = None\n"
+        "import torch\n"
         "import simd_minimizers_tpu_torch as smt\n"
-        "from simd_minimizers_tpu_torch.ops import backend, fused, pipeline, _build\n"
+        "from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline, _build\n"
+        "from simd_minimizers_tpu_torch.parallel import multihost\n"
+        "from simd_minimizers_tpu_torch.seq import fasta\n"
         "from simd_minimizers_tpu_torch.utils import device, profiling\n"
+        "from simd_minimizers_tpu_torch import sketch_fasta\n"
+        "rid, pos = smt.minimizers(5, 7).run_batch([b'ACGTGCTCAGAGACTCAG'] * 3, device='cpu')\n"
+        "assert list(pos[rid == 2]) == [4, 5, 8, 13]\n"
+        "recs = [smt.AsciiSeq(b'ACGTGCTCAGAGACTCAG' * 200).codes()] * 2\n"
+        "out = backend.sketch_records(recs, 5, 7, smt.NtHasher(5), device='cpu')\n"
+        "assert list(out[1][:4]) == [4, 5, 8, 13]\n"
+        "long = fused.sketch_long(torch.from_numpy(recs[0]), recs[0].size, 5, 7,\n"
+        "                         smt.NtHasher(5), byte_codes=True, span_chars=5000)\n"
+        "assert long.numpy().tolist() == out[0].tolist()\n"
         "ps = smt.PackedSeqVec.from_ascii(b'ACGTGCTCAGAGACTCAGAGGA')\n"
         "assert list(smt.canonical_minimizer_positions(ps, 5, 7, device='cpu')) == [0, 7, 9, 15]\n"
         "assert list(smt.minimizer_positions(smt.AsciiSeq(b'ACGTGCTCAGAGACTCAG'), 5, 7,\n"

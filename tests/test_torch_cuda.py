@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain versions and the oracle, on a card.
 
 Every instance of minimizer_tiles (strand x minimizers / super-k-mers /
-syncmers x ambiguity plane), on 2-bit DNA and on text, with the nt, mul
-and antilex hashers, and both small kernels, around tile seams. The port
+syncmers x ambiguity plane), on 2-bit DNA (packed and one code per byte)
+and on text, with the nt, mul and antilex hashers, with a launch offset,
+and both small kernels, around tile seams; and the drivers that run them:
+sketch_long across many seams, sketch_records (pinned downloads reused
+across waves) and the batch engine behind run_batch. The port
 runs on its own classes; the independent reference is the JAX package's
 NumPy oracle with the JAX package's hashers (both import no JAX).
 
@@ -18,6 +21,7 @@ import torch
 
 from simd_minimizers_tpu.hashers import AntiLexHasher, MulHasher, NtHasher
 from simd_minimizers_tpu.ops import oracle
+from simd_minimizers_tpu.utils.bits import SKIPPED
 from simd_minimizers_tpu_torch import api, convert
 from simd_minimizers_tpu_torch.ops import fused, pipeline
 from simd_minimizers_tpu_torch.seq.packed import GenericSeq, PackedNSeqVec, PackedSeqVec
@@ -63,7 +67,11 @@ def _both(codes, k, w, h, dev, mode=pipeline.MODE_MINIMIZERS, amb=None, text=Fal
 def _oracle(codes, k, w, h, mode=pipeline.MODE_MINIMIZERS, amb=None):
     sel = oracle.selected_stream(codes, k, w, h, ambiguous=amb)
     if mode == SKM:
-        return oracle.collect_and_dedup_with_index(sel)
+        # with a mask: the dedup on the raw stream, then SKIPPED dropped
+        keep = np.ones(sel.size, bool)
+        keep[1:] = sel[1:] != sel[:-1]
+        keep &= sel != SKIPPED
+        return sel[keep], np.flatnonzero(keep).astype(np.uint32)
     if mode in (CLOSED, OPEN):
         return oracle.collect_syncmers(sel, w, mode == OPEN)
     return oracle.collect_and_dedup(sel, skip_sentinel=amb is not None)
@@ -219,7 +227,8 @@ def test_ambiguity_vs_plain_and_oracle(dev, k, w, canonical, seed, mode):
 
 @pytest.mark.parametrize("canonical", [False, True])
 @pytest.mark.parametrize("mode,amb", [(pipeline.MODE_MINIMIZERS, True), (SKM, False),
-                                      (CLOSED, False), (CLOSED, True), (OPEN, True)])
+                                      (CLOSED, False), (CLOSED, True), (OPEN, True),
+                                      (SKM, True)])
 def test_each_new_instance_vs_its_plain_version(dev, canonical, mode, amb):
     k, w = 21, 11
     n = 5 * TILE + 17 + k + w - 2
@@ -254,12 +263,14 @@ def test_superkmers_many_tiles(dev, canonical):
 
 
 @pytest.mark.parametrize("mode,amb", [(pipeline.MODE_MINIMIZERS, True), (SKM, False),
-                                      (CLOSED, True)])
-def test_widest_geometry_modes(dev, mode, amb):
+                                      (CLOSED, True), (SKM, True)])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_widest_geometry_modes(dev, mode, amb, canonical):
     # the ambiguity words and the second staging plane count against the gate
-    k, canonical = 21, False
-    w = max(w for w in range(1, 1 << 16) if fused.fused_supported(k, w, canonical, mode, amb))
-    assert not fused.fused_supported(k, w + 1, canonical, mode, amb)
+    k, step = 21, 2 if canonical else 1
+    w = max(w for w in range(1, 1 << 16, step)
+            if fused.fused_supported(k, w, canonical, mode, amb))
+    assert not fused.fused_supported(k, w + step, canonical, mode, amb)
     n = 4 * w + k + w - 2
     rng = np.random.default_rng(w)
     codes = rng.integers(0, 4, n, dtype=np.uint8)
@@ -427,3 +438,201 @@ def test_builders_text_and_hashers_on_card(dev):
                 np.testing.assert_array_equal(out.positions, want.positions)
                 if out.superkmer_indices is not None:
                     np.testing.assert_array_equal(out.superkmer_indices, want.superkmer_indices)
+
+
+# -- the drivers: offsets, code bytes, spans, records, batches -----------
+
+
+@pytest.mark.parametrize("mode,amb", [(pipeline.MODE_MINIMIZERS, False), (SKM, True),
+                                      (CLOSED, True), (OPEN, False)])
+@pytest.mark.parametrize("offset", [0, (1 << 31) + 12_345, (1 << 32) - 10**5])
+def test_offset_and_code_bytes_vs_plain(dev, mode, amb, offset):
+    """The u32 offset near 2^32 and the one-code-per-byte input (bytes
+    above 3 keep their low two bits), each kernel against its plain version
+    and the oracle."""
+    k, w = 21, 11
+    rng = np.random.default_rng(offset % 977)
+    codes = rng.integers(0, 4, 3 * TILE + 50, dtype=np.uint8)
+    noisy = codes | (rng.integers(0, 64, codes.size, dtype=np.uint8) << 2)
+    mask = _clustered_mask(codes.size, k + w - 1, rng) if amb else None
+    h = NtHasher(k, canonical=True)
+    (kind, canonical, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev)
+    plane = None if mask is None else convert.ambiguity_plane(mask, codes.size, dev)
+    ref = _oracle(codes, k, w, h, mode, mask)
+    ref = tuple(r.astype(np.uint64) + offset for r in (ref if mode == SKM else (ref,)))
+    for chars, kw in ((convert.code_bytes(noisy, dev), {"byte_codes": True}),
+                      (convert.packed_words(PackedSeqVec.from_codes(codes), dev), {})):
+        args = (chars, codes.size, k, w, tables, rot, canonical, mode, plane)
+        got = fused.fused_sketch(*args, offset=offset, **kw)
+        want = pipeline.run_pipeline(*args, offset=offset, **kw)
+        got, want = ((x,) if mode != SKM else x for x in (got, want))
+        for g, p, r in zip(got, want, ref, strict=True):
+            assert torch.equal(g, p)
+            np.testing.assert_array_equal(g.cpu().numpy().view(np.uint32), r)
+
+
+@pytest.mark.parametrize("mode", pipeline.MODES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_sketch_long_many_seams(dev, mode, masked):
+    """sketch_long over 2e6 chars in 64 Ki-char spans (about 31 seams), with
+    a mask, eager and in waves: bit-equal to one launch, which equals its
+    plain version, and to the oracle."""
+    k, w, n = 21, 11, 2_000_000
+    rng = np.random.default_rng(31 + masked)
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    mask = _clustered_mask(n, k + w - 1, rng) | (rng.random(n) < 1e-4) if masked else None
+    h = convert.hasher_from(NtHasher(k, canonical=True))
+    chars = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
+    plane = None if mask is None else convert.ambiguity_plane(mask, n, dev)
+    (kind, canonical, rot), tables = convert.hasher_tensors(h, dev)
+    one = fused.fused_sketch(chars, n, k, w, tables, rot, canonical, mode, plane)
+    plain = pipeline.run_pipeline(chars, n, k, w, tables, rot, canonical, mode, plane)
+    one, plain = ((x,) if mode != SKM else x for x in (one, plain))
+    for budget in (0, 1 << 30):
+        got = fused.sketch_long(chars, n, k, w, h, mode, plane, span_chars=1 << 16,
+                                wave_bytes=budget)
+        torch.cuda.synchronize()
+        for g, o, p in zip(got if mode == SKM else (got,), one, plain, strict=True):
+            assert torch.equal(g, o) and torch.equal(o, p)
+    ref = _oracle(codes, k, w, NtHasher(k, canonical=True), mode, mask)
+    for o, r in zip(one, ref if mode == SKM else (ref,), strict=True):
+        np.testing.assert_array_equal(o.cpu().numpy().view(np.uint32), r)
+
+
+def test_builder_run_long_route(dev, monkeypatch):
+    """Builder.run on the card through sketch_long (threshold lowered), with
+    its pinned download: equal to the one-launch run and the oracle."""
+    from simd_minimizers_tpu_torch.ops import backend
+
+    seq = PackedSeqVec.random(1_000_000, np.random.default_rng(8))
+    mask = np.random.default_rng(9).random(1_000_000) < 1e-3
+    b = api.canonical_minimizers(21, 11)
+    want = b.run(seq, ambiguous=mask, device=dev).positions
+    monkeypatch.setattr(backend, "LONG_SEQUENCE_CHARS", 1 << 18)
+    got = b.run(seq, ambiguous=mask, device=dev).positions
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, b.run_scalar(seq, ambiguous=mask).positions)
+
+
+@pytest.mark.parametrize("mode", [pipeline.MODE_MINIMIZERS, SKM, CLOSED])
+def test_sketch_records_vs_plain_and_oracle(dev, mode):
+    """Records of every size (sub-window to several spans), with masks on
+    all but super-k-mers, through the kernels: equal to the plain version
+    of each record on the card and to the oracle."""
+    from simd_minimizers_tpu_torch.ops import backend
+
+    k, w = 21, 11
+    rng = np.random.default_rng(40)
+    lens = [0, 30, 31, 4096, 70_001, 300_000] + list(rng.integers(100, 3000, 12))
+    recs = [rng.integers(0, 4, int(n), dtype=np.uint8) for n in lens]
+    ambs = None if mode == SKM else [None if i % 3 == 0 else (rng.random(r.size) < 0.005)
+                                     for i, r in enumerate(recs)]
+    jh = NtHasher(k, canonical=True)
+    h = convert.hasher_from(jh)
+    (kind, canonical, rot), tables = convert.hasher_tensors(h, dev)
+    got_span = fused.sketch_records(recs, k, w, h, mode, ambs, device=dev, span_chars=50_000)
+    got_routed = backend.sketch_records(recs, k, w, h, mode, ambs, device=dev)
+    for i, r in enumerate(recs):
+        a = None if ambs is None else ambs[i]
+        chars = convert.code_bytes(r, dev)
+        plane = None if a is None else convert.ambiguity_plane(a, r.size, dev)
+        plain = pipeline.run_pipeline(chars, r.size, k, w, tables, rot, canonical, mode, plane,
+                                      byte_codes=True)
+        plain = tuple(p.cpu().numpy().view(np.uint32) for p in (plain if mode == SKM
+                                                                else (plain,)))
+        ref = _oracle(r, k, w, jh, mode, a) if r.size >= k + w - 1 else (
+            np.zeros(0, np.uint32),) * len(plain)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for got in (got_span[i], got_routed[i]):
+            for g, p, o in zip(got if mode == SKM else (got,), plain, ref, strict=True):
+                np.testing.assert_array_equal(g, p)
+                np.testing.assert_array_equal(g, o)
+
+
+def test_pinned_downloads_reused_across_waves(dev):
+    """Many small waves (a budget below one launch) recycle pinned buffers
+    while later launches run; two runs agree with each other and with a
+    one-wave run, compared after torch.cuda.synchronize()."""
+    k, w = 21, 11
+    rng = np.random.default_rng(41)
+    recs = [rng.integers(0, 4, int(n), dtype=np.uint8) for n in rng.integers(50_000, 400_000, 40)]
+    h = convert.hasher_from(NtHasher(k, canonical=True))
+    runs = [fused.sketch_records(recs, k, w, h, device=dev, span_chars=1 << 17, wave_bytes=b)
+            for b in (1, 1, 1 << 34)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other, strict=True):
+            np.testing.assert_array_equal(a, b)
+    for r, g in zip(recs[:3], runs[0]):
+        np.testing.assert_array_equal(g, _oracle(r, k, w, NtHasher(k, canonical=True)))
+
+
+@pytest.mark.parametrize("mode,masked", [(pipeline.MODE_MINIMIZERS, False),
+                                         (pipeline.MODE_MINIMIZERS, True), (SKM, False),
+                                         (OPEN, True)])
+def test_run_batch_vs_plain_and_oracle(dev, mode, masked):
+    """Builder.run_batch on the card (every launch runs an instance with the
+    padding plane): equal to the plain pipeline of the same launches on the
+    card and to the per-read oracle."""
+    from simd_minimizers_tpu_torch.ops import batch
+
+    k, w = 21, 11
+    rng = np.random.default_rng(42 + masked)
+    lens = list(rng.integers(0, 3000, 300)) + [10_000, 150, 150, 31, 30]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    reads = [acgt[rng.integers(0, 4, int(n))].tobytes() for n in lens]
+    ambs = [(rng.random(len(r)) < 0.01).astype(np.uint8) for r in reads] if masked else None
+    syncmer = 2 if mode == OPEN else 0
+    b = api.Builder(k, w, mode != OPEN, syncmer=syncmer)
+    if mode == SKM:
+        b = b.super_kmers()
+    before = dict(fused.LAUNCHES)
+    got = b.run_batch(reads, ambiguous=ambs, device=dev)
+    name = fused.instance_name(b.canonical, mode, True)
+    assert fused.LAUNCHES[name] > before[name]
+    codes = [np.frombuffer(r, np.uint8) >> 1 & 3 for r in reads]
+    plain = batch.sketch_batch(codes, k, w, b._resolved_hasher(), mode, ambs, dna=True,
+                               device=dev, backend="pipeline")
+    for g, p in zip(got, plain, strict=True):
+        np.testing.assert_array_equal(g, p)
+    rid, *planes = got
+    h = NtHasher(k, canonical=b.canonical)
+    for i, c in enumerate(codes[:120]):
+        if c.size < k + w - 1:
+            assert not np.any(rid == i)
+            continue
+        want = _oracle(c, k, w, h, mode, None if ambs is None else ambs[i])
+        for p, r in zip(planes, want if mode == SKM else (want,), strict=True):
+            np.testing.assert_array_equal(p[rid == i], r, err_msg=f"read {i}")
+
+
+def test_wall_split_on_card(dev):
+    """utils/profiling.split_wall around run_batch and sketch_records on the
+    card: the download is a stage there, and the results equal a run
+    without the split."""
+    from simd_minimizers_tpu_torch.ops import backend
+    from simd_minimizers_tpu_torch.utils import profiling
+
+    k, w = 21, 11
+    rng = np.random.default_rng(43)
+    recs = [rng.integers(0, 4, int(n), dtype=np.uint8) for n in rng.integers(100, 5000, 20)]
+    recs.append(rng.integers(0, 4, 300_000, dtype=np.uint8))
+    ambs = [(rng.random(r.size) < 0.01).astype(np.uint8) for r in recs]
+    h = convert.hasher_from(NtHasher(k, canonical=True))
+    b = api.canonical_minimizers(k, w)
+    reads = [np.frombuffer(b"ACGT", np.uint8)[r].tobytes() for r in recs]
+
+    # the long record takes the span route, the others the batch route
+    def both():
+        return (backend.sketch_records(recs, k, w, h, pipeline.MODE_MINIMIZERS, ambs,
+                                       device=dev, batch_max_bp=100_000),
+                b.run_batch(reads, device=dev))
+
+    want = both()
+    with profiling.split_wall() as parts:
+        got = both()
+    for g_run, w_run in zip(got, want, strict=True):
+        for g, p in zip(g_run, w_run, strict=True):
+            np.testing.assert_array_equal(g, p)
+    assert {"upload", "mask packing", "kernels", "download", "seam merge", "split by record",
+            "fold reads to codes", "slot fill"} <= set(parts)

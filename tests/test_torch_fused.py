@@ -14,6 +14,7 @@ import simd_minimizers_tpu_torch as smt
 
 from simd_minimizers_tpu.hashers import AntiLexHasher, MulHasher, NtHasher
 from simd_minimizers_tpu.native import pack_2bit
+from simd_minimizers_tpu.ops import backend as jbackend
 from simd_minimizers_tpu.ops import fused as jfused
 from simd_minimizers_tpu.ops import oracle
 from simd_minimizers_tpu_torch import convert
@@ -117,9 +118,10 @@ def test_beyond_gate_raises_on_cpu(k, w):
                                   pipeline.MODE_OPEN_SYNCMERS])
 def test_other_modes_raise(mode):
     """The modes besides minimizers, refused until they were ported, run on
-    the CPU and match the oracle; what the JAX package refuses in them
-    raises its AssertionError: super-k-mers with an ambiguity plane, open
-    syncmers with an even w, a canonical hasher with an even l."""
+    the CPU and match the oracle, super-k-mers with an ambiguity plane too
+    (equal to the JAX package's backend.sketch with that mask); what the JAX
+    package refuses in them raises its AssertionError: open syncmers with an
+    even w, a canonical hasher with an even l."""
     codes = np.random.default_rng(6).integers(0, 4, 400, dtype=np.uint8)
     words = torch.from_numpy(pack_2bit(codes))
     h = smt.NtHasher(5)
@@ -128,7 +130,13 @@ def test_other_modes_raise(mode):
     if mode == pipeline.MODE_SUPERKMERS:
         for g, want in zip(got, oracle.collect_and_dedup_with_index(sel), strict=True):
             np.testing.assert_array_equal(g.numpy().astype(np.uint32), want)
-        refused = dict(w=7, hasher=h, ambiguous=torch.zeros(50, dtype=torch.uint8))
+        mask = np.zeros(400, np.uint8)
+        mask[[3, 150, 151, 390]] = 1
+        got = backend.sketch(words, 400, 5, 7, h, mode, convert.ambiguity_plane(mask, 400, "cpu"))
+        want = jbackend.sketch(codes, 5, 7, NtHasher(5), mode=mode, ambiguous_np=mask)
+        for g, p in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g.numpy().view(np.uint32), p)
+        refused = dict(w=8, hasher=smt.NtHasher(5, canonical=True))
     else:
         want = oracle.collect_syncmers(sel, 7, mode == pipeline.MODE_OPEN_SYNCMERS)
         np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
@@ -158,10 +166,15 @@ def test_other_hasher_raises():
 
 
 def test_long_input_raises():
+    """One launch takes fewer than 2^31 chars (the JAX package's
+    AssertionError in _fused_launch); sketch_long splits longer inputs, up
+    to 2^32 chars."""
     words = torch.zeros(4, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(AssertionError, match="2\\^31"):
         fused.fused_sketch(words, 1 << 31, 21, 11, torch.zeros(2, 4, dtype=torch.int64), 23,
                            False)
+    with pytest.raises(AssertionError, match="2\\^32"):
+        fused.sketch_long(words, 1 << 32, 21, 11, smt.NtHasher(21))
 
 
 def test_bad_arguments_raise():
