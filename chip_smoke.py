@@ -63,6 +63,26 @@ peak device memory:
   of the same launches on the card and, for 10,000 reads, to the oracle;
   each run's wall split into stages, and each kernel against its plain
   version on its widest launch, bounded over the windows its reads own.
+Then the paths of the last slice:
+- the two routes of the sliding minimum at w = 16..4096 (1e7 bases, both
+  strands), bit-equal to each other, timed in turns: where the large-w
+  route starts to win (ops/fused.LARGE_W_MIN);
+- large w at 1e8 chars through `Builder.run`: canonical nt at w = 32,767,
+  forward nt at w = 61,439 with the chromosome mask, forward mul text at
+  32,767, canonical super-k-mers and forward closed syncmers at 32,767,
+  canonical at w = 21,721 and 21,723 (the two sides of the old shared-
+  memory gate): each launch against its plain version at 1e7 chars, each
+  path against the oracle (O(w) per window: canonical w = 32,767 at 1e6
+  chars, the others at 3e5), the density of forward closed syncmers
+  against 2/w, kernel time and bound at 1e8;
+- `ShortSeqSketcher` (one captured CUDA graph, canonical k=21 w=11):
+  `sketch_many` of 10,000 random sequences of 30-8,222 chars, each
+  against the oracle, launches counted per replay; `measure_floor` at
+  8,192 chars beside a warm `Builder.run` of the same chars; super-k-mers;
+- `fused_sharded_sketch` of the 1e8 bases over ["cuda:0"] and
+  ["cuda:0"] * 4 in every mode family (one with the N mask), each
+  bit-equal to `Builder.run`; `multihost_sketch` under an NCCL group of one
+  process and `_allgather_ragged_planes` of two planes over it.
 Every one of the 12 `minimizer_tiles` instances must have run on a main
 path. Last, it holds every 1e8 path's builder against the NumPy oracle at
 1e6 chars with a mask of the same shape, and the minimizer builders on the
@@ -198,6 +218,7 @@ SWEEP_SPAN = 1 << 24  # span chars of the 1e8-base sweep of sketch_long
 N_SHORT_READS, SHORT_READ = 1_000_000, 150  # the short-read shape
 N_LONG_READS = 20_000  # reads of 100-10,000 bp
 N_READ_ORACLE = 10_000  # reads of each batch held against the oracle
+N_SHORT = 10_000  # sequences through the short-sequence sketcher
 DEVICE = "cuda"
 
 
@@ -809,10 +830,381 @@ def _read_batches(ctx):
         del items, plain, got
 
 
+N_LARGE_CHECK = 10**7  # chars at which the large-w launches are held against the plain version
+
+
+def _oracle_threaded(b, codes, mask=None, sels=None):
+    """The builder's oracle (`run_scalar`'s functions) on uint8 codes, its
+    windows split among 8 threads (the window argmin is O(w) per window;
+    NumPy releases the GIL in it): (positions[, indices]). `sels` keeps the
+    selected stream of each (hasher, w, input, mask) for the next mode."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from simd_minimizers_tpu_torch.ops import oracle, pipeline
+    from simd_minimizers_tpu_torch.utils.bits import SKIPPED
+
+    k, w, h = b.k, b.w, b._resolved_hasher()
+    key = (h.kind, h.canonical, h.seed, w, codes.size, bool(codes.max() > 3), mask is None)
+    sels = {} if sels is None else sels
+    if key in sels:
+        return _collect(b, sels[key], mask is not None)
+    l = k + w - 1
+    nw = codes.size - l + 1
+    step = -(-nw // 64)
+
+    def part(s):
+        e = min(s + step, nw)
+        sel = oracle.selected_stream(codes[s:e + l - 1], k, w, h,
+                                     None if mask is None else mask[s:e + l - 1])
+        return np.where(sel == SKIPPED, sel, sel + np.uint32(s)).astype(np.uint32)
+
+    with ThreadPoolExecutor(8) as ex:
+        sels[key] = np.concatenate(list(ex.map(part, range(0, nw, step))))
+    return _collect(b, sels[key], mask is not None)
+
+
+def _collect(b, sel, masked: bool):
+    """The builder's planes from the oracle's selected stream."""
+    from simd_minimizers_tpu_torch.ops import oracle, pipeline
+
+    mode, w = b._mode, b.w
+    if mode in pipeline.SYNCMER_MODES:
+        return (oracle.collect_syncmers(sel, w, mode == pipeline.MODE_OPEN_SYNCMERS),)
+    if mode == pipeline.MODE_SUPERKMERS:
+        return oracle.collect_and_dedup_with_index(sel)
+    return (oracle.collect_and_dedup(sel, skip_sentinel=masked),)
+
+
+N_ORACLE_LARGE_W = 3 * 10**5  # chars of the oracle check of the other large-w paths
+
+
+def _large_w(ctx):
+    """Large w at 1e8 chars through Builder.run(device="cuda"): the large-w
+    route of minimizer_tiles. Each launch against its plain version at 1e7
+    chars, each path against the oracle (card and oracle on the same input;
+    the oracle is O(w) per window): canonical w = 32,767 at 1e6 chars, the
+    others at 3e5; the density of forward closed syncmers."""
+    import numpy as np
+    import torch
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert
+    from simd_minimizers_tpu_torch.ops import fused, pipeline
+
+    dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
+    (seq, mask), (text, _) = ctx["inputs"]["dna"], ctx["inputs"]["text"]
+    k = K
+    MIN, SKM, CLOSED = (pipeline.MODE_MINIMIZERS, pipeline.MODE_SUPERKMERS,
+                        pipeline.MODE_CLOSED_SYNCMERS)
+    # (name, builder, mask?, input, expected density or None, oracle chars).
+    # Forward nt keeps the random-minimizer density; canonical rises far
+    # above 2/(w+1) at large w (ties of the top 16 bits between the two
+    # arms' picks, the oracle alike: 11x at w = 32,767), so it is printed and
+    # held by equality
+    big, small_n = N_ORACLE, N_ORACLE_LARGE_W
+    paths = [
+        ("canonical minimizers", smt.canonical_minimizers(k, 32_767), False, "dna", None, big),
+        ("forward minimizers, chromosome mask", smt.minimizers(k, 61_439), True, "dna", None,
+         small_n),
+        ("text, forward mul minimizers", smt.minimizers(k, 32_767).hasher(smt.MulHasher(k)),
+         False, "text", None, small_n),
+        ("canonical super-k-mers", smt.canonical_minimizers(k, 32_767).super_kmers(), False,
+         "dna", None, big),
+        ("forward closed syncmers", smt.closed_syncmers(k, 32_767), False, "dna", 2 / 32_767,
+         small_n),
+        ("canonical minimizers, w = 21,721 (inside the old gate)",
+         smt.canonical_minimizers(k, 21_721), False, "dna", None, small_n),
+        ("canonical minimizers, w = 21,723 (past the old gate)",
+         smt.canonical_minimizers(k, 21_723), False, "dna", None, small_n),
+    ]
+    small_rng = np.random.default_rng(ctx["seed"] + 7)
+    small_codes = small_rng.integers(0, 4, N_ORACLE, dtype=np.uint8)
+    small_text = small_rng.integers(32, 127, N_ORACLE, dtype=np.uint8)
+    # isolated flags (20 per 1e6 chars), so that some windows of w = 61,439
+    # hold none and the masked path keeps values to compare
+    small_mask = np.zeros(N_ORACLE, bool)
+    small_mask[small_rng.integers(0, N_ORACLE, 20)] = True
+    sels = {}
+    for name, b, masked, inp, density_want, n_oracle in paths:
+        w, mode = b.w, b._mode
+        l = k + w - 1
+        s_in = text if inp == "text" else seq
+        print(f"large w: {name}, k={k} w={w} ({inp}; sub_tile {fused.sub_tile(w)}):")
+        out, wall, launched, peak = _main_path(
+            lambda: b.run(s_in, ambiguous=mask if masked else None, device=dev))
+        instance = fused.instance_name(b.canonical, mode, masked)
+        _expect_launches(name, launched, instance, 1)
+        h = b._resolved_hasher()
+        text_in = inp == "text"
+        (kind, canonical, rot), tables = convert.hasher_tensors(h, dev, text_in)
+        variant = f" [{'text, ' + kind + ', ' if text_in else ''}large w]"
+        rec.tally(launched, instance, variant)
+        nw = N - l + 1
+        count = out.positions.size
+        density = count / nw
+        print(f"  {count} kept; Builder.run wall {wall * 1e3:.1f} ms; peak extra device memory "
+              f"{peak:.1f} MiB; density {density:.7f}, {density * (w + 1) / 2:.3f}x 2/(w+1)"
+              + ("" if density_want is None else f" (want {density_want:.7f})"))
+        if density_want is not None and abs(density / density_want - 1) > 0.1:
+            raise RuntimeError(f"{name}: density {density} is not within 10% of {density_want}")
+
+        # the kernel at 1e8 (the main path's launch) and its bound
+        chars = (convert.text_bytes(s_in, dev) if text_in else convert.packed_words(s_in, dev))
+        plane = convert.ambiguity_plane(mask, N, dev) if masked else None
+        args = (chars, N, k, w, tables, rot, canonical, mode, plane)
+        kw = {"text": text_in, "kind": kind}
+        got = fused.fused_sketch(*args, **kw)
+        for g, o in zip(got if mode == SKM else (got,), (out.positions, out.superkmer_indices),
+                        strict=False):
+            if not np.array_equal(g.cpu().numpy().view(np.uint32), o):
+                raise RuntimeError(f"{name}: the kernel path differs from Builder.run")
+        kt = _median_ms(lambda: fused.minimizer_tiles(*args, **kw), 3, 3, 1)
+        pt = _median_ms(lambda: fused.fused_sketch(*args, **kw), 3, 3, 1)
+        ops = _tiles_ops_per_window(k, canonical, kind, text_in, masked)
+        planes = 2 if mode == SKM else 1
+        bound = _bound((N if text_in else N / 4) + (N / 8 if masked else 0)
+                       + 4 * (planes * count + -(-nw // fused.TILE)), nw * ops)
+        print(f"  at {N} chars: minimizer_tiles {kt[0]:.4f} ms ({kt[1]:.4f}..{kt[2]:.4f}; "
+              f"{kt[0] * 1e6 / N:.5f} ns/char), kernel path {pt[0]:.4f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}), {kt[0] / bound[0]:.1f}x; {note}")
+        del got, chars, plane, out
+
+        # each kernel against its plain version at 1e7 chars
+        m = N_LARGE_CHECK
+        sub = s_in.slice(0, m) if not text_in else smt.GenericSeq(s_in.seq[:m])
+        sub_chars = convert.text_bytes(sub, dev) if text_in else convert.packed_words(sub, dev)
+        sub_plane = convert.ambiguity_plane(np.isin(np.arange(m), small_rng.integers(
+            0, m, 200)), m, dev) if masked else None  # isolated flags: windows survive
+        kt1 = _tiles_check(rec, instance + variant,
+                           (sub_chars, m, k, w, tables, rot, canonical, mode, sub_plane), kw,
+                           ops, plain_reps=(2, 1, 0))
+        print(f"  at {m} chars: each kernel bit-equal to its plain version; kernel path "
+              f"{kt1:.4f} ms")
+        del sub_chars, sub_plane
+        torch.cuda.empty_cache()
+
+        # against the oracle, the same input on the card
+        codes = (small_text if text_in else small_codes)[:n_oracle]
+        small = smt.GenericSeq(codes) if text_in else smt.PackedSeqVec.from_codes(codes)
+        m_small = small_mask[:n_oracle] if masked else None
+        res = b.run(small, ambiguous=m_small, device=dev)
+        got = (res.positions,) if res.superkmer_indices is None else (
+            res.positions, res.superkmer_indices)
+        t = time.perf_counter()
+        want = _oracle_threaded(b, codes, m_small, sels)
+        if not all(np.array_equal(g, p) for g, p in zip(got, want, strict=True)):
+            raise RuntimeError(f"{name}: Builder on the card disagrees with the oracle at "
+                               f"{n_oracle} chars")
+        print(f"  bit-equal to the oracle at {n_oracle} chars ({got[0].size} values; oracle "
+              f"{time.perf_counter() - t:.1f} s)")
+
+
+def _short_sequences(ctx):
+    """ShortSeqSketcher, canonical k=21 w=11: sketch_many of 10,000 random
+    sequences of 30-8,222 chars (one captured graph, a replay each) against
+    the oracle, the kernel at the graph's shape against its plain version,
+    measure_floor at 8,192 chars beside a warm Builder.run of the same
+    chars, and super-k-mers once."""
+    import numpy as np
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert
+    from simd_minimizers_tpu_torch.ops import fused, pipeline
+    from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher
+
+    dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
+    rng = np.random.default_rng(ctx["seed"] + 8)
+    h = smt.NtHasher(K, canonical=True)
+    sk = ShortSeqSketcher(K, W, h, device=dev)
+    lens = [30, 31, 64, 1024, 8192, sk.max_chars]
+    lens += [int(x) for x in rng.integers(30, sk.max_chars + 1, N_SHORT - len(lens))]
+    seqs = [rng.integers(0, 4, n, dtype=np.uint8) for n in lens]
+    print(f"short sequences: ShortSeqSketcher canonical k={K} w={W}, {len(seqs)} sequences of "
+          f"30-{sk.max_chars} chars (max_chars), sketch_many:")
+    outs, wall, launched, _ = _main_path(lambda: sk.sketch_many(seqs))
+    ran = sum(s.size >= K + W - 1 for s in seqs)
+    instance = fused.instance_name(True, pipeline.MODE_MINIMIZERS, False)
+    _expect_launches("short sequences", launched, instance, ran)
+    rec.tally(launched, instance, " [graph replay]")
+    b = smt.canonical_minimizers(K, W)
+    for s, o in zip(seqs, outs, strict=True):
+        want = b.run_scalar(smt.PackedSeqVec.from_codes(s)).positions
+        if not np.array_equal(o, want):
+            raise RuntimeError(f"short sequences: a sequence of {s.size} chars differs from "
+                               "the oracle")
+    print(f"  {ran} graph replays (3 kernels each) in {wall * 1e3:.1f} ms wall "
+          f"({wall / len(seqs) * 1e6:.1f} us per sequence); every result bit-equal to the "
+          f"oracle; {note}")
+    (kind, canonical, rot), tables = convert.hasher_tensors(h, dev)
+    one = seqs[lens.index(sk.max_chars)]
+    _tiles_check(rec, instance + " [graph replay]",
+                 (convert.code_bytes(one, dev), one.size, K, W, tables, rot, canonical,
+                  pipeline.MODE_MINIMIZERS, None), {"byte_codes": True},
+                 _tiles_ops_per_window(K, True, "nt", True, False))
+    codes = seqs[lens.index(8192)]
+    floor = ShortSeqSketcher(K, W, h, donate=False, device=dev).measure_floor(codes)
+    ps = smt.PackedSeqVec.from_codes(codes)
+    b.run(ps, device=dev)
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(100):
+        b.run(ps, device=dev)
+    per_run = (time.perf_counter() - t) / 100
+    print("  measure_floor at 8192 chars (donate=False): "
+          + ", ".join(f"{key} {v:.1f}" for key, v in floor.items())
+          + f"; warm Builder.run of the same chars {per_run * 1e6:.1f} us per call (100 calls); "
+          f"{note}")
+    skm = ShortSeqSketcher(K, W, h, mode=pipeline.MODE_SUPERKMERS, device=dev)
+    got = skm.sketch(codes)
+    want = b.super_kmers().run_scalar(ps)
+    if not (np.array_equal(got[0], want.positions)
+            and np.array_equal(got[1], want.superkmer_indices)):
+        raise RuntimeError("short sequences: super-k-mers differ from the oracle")
+    print("  super-k-mers: bit-equal to the oracle")
+
+
+def _sharded(ctx):
+    """fused_sharded_sketch of the 1e8 bases over ["cuda:0"] and
+    ["cuda:0"] * 4 in every mode family (minimizers also with the N mask),
+    each bit-equal to Builder.run; then multihost_sketch under an NCCL
+    group of one process and the ragged all-gather of two planes over it."""
+    import datetime
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert
+    from simd_minimizers_tpu_torch.ops import fused, pipeline
+    from simd_minimizers_tpu_torch.parallel import multihost, shard
+
+    dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
+    seq, mask = ctx["inputs"]["dna"]
+    codes = seq.codes()
+    runs = [(smt.canonical_minimizers(K, W), None), (smt.canonical_minimizers(K, W), mask),
+            (smt.canonical_minimizers(K, W).super_kmers(), None),
+            (smt.closed_syncmers(K, W), None), (smt.open_syncmers(K, W), None)]
+    l = K + W - 1
+    print(f"sharded: fused_sharded_sketch of {N} bases:")
+    for b, m in runs:
+        mode = b._mode
+        out = b.run(seq, ambiguous=m, device=dev)
+        want = (out.positions,) if out.superkmer_indices is None else (
+            out.positions, out.superkmer_indices)
+        instance = fused.instance_name(b.canonical, mode, m is not None)
+        for mesh in ([dev], [dev] * 4):
+            got, wall, launched, peak = _main_path(lambda: shard.fused_sharded_sketch(
+                codes, K, W, b._resolved_hasher(), mode, m, mesh=mesh))
+            _expect_launches(f"sharded {instance}", launched, instance, len(mesh))
+            rec.tally(launched, instance, " [sharded]")
+            got = got if isinstance(got, tuple) else (got,)
+            if not all(np.array_equal(g, p) for g, p in zip(got, want, strict=True)):
+                raise RuntimeError(f"sharded {instance} over {len(mesh)} shards differs from "
+                                   "Builder.run")
+            print(f"  {mode}, {instance}{' (N mask)' if m is not None else ''}, "
+                  f"{len(mesh)} shard(s): "
+                  f"wall {wall:.3f} s, peak extra device memory {peak:.1f} MiB; bit-equal to "
+                  f"Builder.run; {note}")
+    # one shard's launch against its plain version (its first char as offset)
+    h = smt.NtHasher(K, canonical=True)
+    (kind, canonical, rot), tables = convert.hasher_tensors(h, dev)
+    s, n = shard._shard_spans(N, l, 4)[1]
+    chars = convert.code_bytes(codes, dev)
+    _tiles_check(rec, fused.instance_name(True, pipeline.MODE_MINIMIZERS, False) + " [sharded]",
+                 (chars[s:s + n], n, K, W, tables, rot, canonical, pipeline.MODE_MINIMIZERS,
+                  None), {"offset": s, "byte_codes": True},
+                 _tiles_ops_per_window(K, True, "nt", True, False), plain_reps=(2, 1, 0))
+    del chars
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        b = smt.canonical_minimizers(K, W).super_kmers()
+        want = b.run(seq, device=dev)
+        got, wall, launched, _ = _main_path(lambda: multihost.multihost_sketch(
+            codes, K, W, h, pipeline.MODE_SUPERKMERS, device=dev.type))
+        instance = fused.instance_name(True, pipeline.MODE_SUPERKMERS, False)
+        _expect_launches("multihost", launched, instance, 1)
+        rec.tally(launched, instance, " [sharded]")
+        if not (np.array_equal(got[0], want.positions)
+                and np.array_equal(got[1], want.superkmer_indices)):
+            raise RuntimeError("multihost_sketch differs from Builder.run")
+        parts, aux = multihost._allgather_ragged_planes([want.positions[:12345],
+                                                         want.superkmer_indices[:12345]], 1)
+        if not (np.array_equal(parts[0], want.positions[:12345])
+                and np.array_equal(aux[0], want.superkmer_indices[:12345])):
+            raise RuntimeError("the NCCL all-gather changed the planes")
+        print(f"  multihost_sketch, NCCL world of 1, super-k-mers: wall {wall:.3f} s, bit-equal "
+              f"to Builder.run; _allgather_ragged_planes of two planes over NCCL: equal; {note}")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+CROSSOVER_W = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)  # w of the route comparison
+N_CROSSOVER = 10**7  # chars of the route comparison
+
+
+def _crossover(ctx):
+    """`minimizer_tiles` by both routes at w = 16..4096 (canonical and
+    forward nt, 1e7 random bases, the launch the threshold decides), each
+    bit-equal to the other, timed in turns; prints the w from which the
+    large-w route wins in both strands."""
+    import numpy as np
+    import torch
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert
+    from simd_minimizers_tpu_torch.ops import fused
+
+    dev, note = ctx["dev"], ctx["card_note"]
+    rng = np.random.default_rng(ctx["seed"] + 6)
+    chars = convert.packed_words(smt.PackedSeqVec.random(N_CROSSOVER, rng), dev)
+    threshold = fused.LARGE_W_MIN
+    print(f"routes of minimizer_tiles at {N_CROSSOVER} bases (stored / large-w, ms; "
+          f"LARGE_W_MIN = {threshold}):")
+    wins = {}
+    try:
+        for canonical in (True, False):
+            for w in CROSSOVER_W:
+                k = 21 if (w % 2 or not canonical) else 22
+                (kind, can, rot), tables = convert.hasher_tensors(smt.NtHasher(k, canonical),
+                                                                  dev)
+                args = (chars, N_CROSSOVER, k, w, tables, rot, can)
+                times, outs = {}, {}
+                for route, thr in (("stored", 1 << 16), ("large", 1), ("large", 1),
+                                   ("stored", 1 << 16)):
+                    fused.LARGE_W_MIN = thr
+                    outs[route] = fused.fused_sketch(*args)
+                    reps = 1 if route == "stored" and w >= 1024 else 3
+                    times.setdefault(route, []).append(
+                        _median_ms(lambda: fused.minimizer_tiles(*args), 3, reps, 1)[0])
+                if not torch.equal(outs["stored"], outs["large"]):
+                    raise RuntimeError(f"routes disagree at w={w}")
+                st, lg = (sum(times[r]) / 2 for r in ("stored", "large"))
+                wins.setdefault(canonical, []).append((w, lg < st))
+                print(f"  {'canonical' if canonical else 'forward'} k={k} w={w}: stored "
+                      f"{st:.4f}, large-w {lg:.4f} ({st / lg:.2f}x); bit-equal; {note}")
+    finally:
+        fused.LARGE_W_MIN = threshold
+    first = max(next((w for w, win in v if win), 1 << 16) for v in wins.values())
+    print(f"  the large-w route wins in both strands from w = {first} (LARGE_W_MIN = "
+          f"{threshold})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1044,7 +1436,8 @@ def main() -> int:
     del ascii_in
 
     # -- the paths of whole genomes and read batches ----------------------
-    ctx = {"dev": dev, "rec": rec, "card_note": card_note, "seed": args.seed}
+    ctx = {"dev": dev, "rec": rec, "card_note": card_note, "seed": args.seed,
+           "inputs": inputs}
     _bus(ctx)
     _long_sequence(ctx)
     _long_sweep(ctx, chars_dev["dna"], planes_dev["dna"])
@@ -1052,6 +1445,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     _genome(ctx)
     _read_batches(ctx)
+
+    # -- large w, short sequences, sharded and multi-process --------------
+    for phase in (_crossover, _large_w, _short_sequences, _sharded):
+        t = time.perf_counter()
+        phase(ctx)
+        print(f"  ({phase.__name__[1:]}: {time.perf_counter() - t:.1f} s)")
 
     rec.finish()
 
@@ -1083,6 +1482,7 @@ def main() -> int:
     print(f"oracle: every path's builder bit-equal at {N_ORACLE} chars (card and CPU), "
           "golden vectors equal")
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": list(rec.entries.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -70,6 +70,17 @@
 // popc for the first window of each thread and a sliding count after it.
 // Unlike the TPU's text path, whose halo stops at l - 1 <= 1024, text takes
 // any w the shared memory admits (ops/fused.fused_supported), as DNA does.
+//
+// Two routes for the sliding minimum, chosen per launch by the block-uniform
+// `sub_tile` (ops/fused.LARGE_W_MIN): the stored route keeps every key of the
+// tile's TILE + w k-mers in shared memory and takes w mins per window and
+// arm; the large-w route (sub_tile T, a power of two <= min(w, TILE)) keeps
+// the chars, two blocks of T keys per arm and one least key per window, so
+// its shared memory no longer grows with w in keys: every w with TILE + w <=
+// 2^16 (the 16-bit column) fits. It hashes w + T k-mers per T windows and
+// takes three mins per window (a suffix of block 0, the core's least key, a
+// prefix of block 1), and counts the first window of each thread by a block
+// scan instead of O(l) per thread.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,16 +104,21 @@ constexpr int SYNCMERS = 2;    // the window index gw where sel - gw is sync_lo 
 
 // Shared-memory layout of minimizer_tiles. Chars cover positions
 // [t0 - 4, t0 + TILE + l - 1) of the tile starting at window t0, rounded up
-// to whole packed bytes; k-mer keys cover k-mers t0 - 1 .. t0 + TILE + w - 2,
-// and their space also stages the compacted planes (TILE words each); with
-// AMB, ambiguity bits cover chars t0 - 32 .. in whole 32-bit words; the
-// fold's forward and complement values of each char follow (2 * 4 words for
-// 2-bit codes, 2 * 256 for text bytes, none for antilex).
+// to whole packed bytes; then the key space, which also stages the
+// compacted planes (TILE words each); with AMB, ambiguity bits cover chars
+// t0 - 32 .. in whole 32-bit words; the fold's forward and complement values
+// of each char follow (2 * 4 words for 2-bit codes, 2 * 256 for text bytes,
+// none for antilex).
+// The key space of the stored route (sub_tile 0): the keys of k-mers
+// t0 - 1 .. t0 + TILE + w - 2 (columns 0 .. TILE + w - 1), per arm. Of the
+// large-w route (sub_tile T, a power of two <= w and <= TILE): per arm the
+// minimum key of each of the TILE + 1 windows, then two blocks of T keys.
 __host__ __device__ inline int tile_chars(int l) { return (TILE + l + 3 + 3) / 4 * 4; }
 __host__ __device__ inline int key_offset(int l) { return (tile_chars(l) + 15) / 16 * 16; }
 __host__ __device__ inline int tile_kmers(int w) { return TILE + w; }
-__host__ __device__ inline int key_words(int w, bool canonical, int mode) {
-  const int keys = (canonical ? 2 : 1) * tile_kmers(w);
+__host__ __device__ inline int key_words(int w, bool canonical, int mode, int sub_tile) {
+  const int per_arm = sub_tile ? TILE + 1 + 2 * sub_tile : tile_kmers(w);
+  const int keys = (canonical ? 2 : 1) * per_arm;
   const int staged = (mode == SUPERKMERS ? 2 : 1) * TILE;
   return keys > staged ? keys : staged;
 }
@@ -112,9 +128,9 @@ __host__ __device__ inline int table_words(bool text, bool antilex) {
 }
 
 inline size_t tile_smem_bytes(int k, int w, bool canonical, int mode, bool amb, bool text,
-                              bool antilex) {
+                              bool antilex, int sub_tile) {
   const int l = k + w - 1;
-  return (size_t)key_offset(l) + 4 * (size_t)key_words(w, canonical, mode) +
+  return (size_t)key_offset(l) + 4 * (size_t)key_words(w, canonical, mode, sub_tile) +
          (amb ? 4 * (size_t)amb_words(l) : 0) + 4 * (size_t)table_words(text, antilex);
 }
 
@@ -147,26 +163,79 @@ __device__ __forceinline__ int block_inclusive_scan(int x, int* warp_sums, int* 
   return x + (warp ? warp_sums[warp - 1] : 0);
 }
 
+// The least of x over the block, in every thread. warp_buf holds one word
+// per warp; the first barrier keeps it from a previous use.
+__device__ __forceinline__ uint32_t block_min(uint32_t x, int* warp_buf) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, d));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) warp_buf[threadIdx.x >> 5] = (int)x;
+  __syncthreads();
+  x = INVALID;
+#pragma unroll
+  for (int i = 0; i < THREADS / 32; ++i) x = min(x, (uint32_t)warp_buf[i]);
+  return x;
+}
+
+// In place, a[i] = min(a[0..i]) over i < m (prefix) or min(a[i..m)) (suffix,
+// `rev`): each thread scans a run, then takes the least of the runs before
+// it. Ends with a barrier.
+__device__ __forceinline__ void block_min_scan(uint32_t* a, int m, bool rev, int* warp_buf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (m + THREADS - 1) / THREADS;
+  const int r0 = min((int)threadIdx.x * per, m), r1 = min(r0 + per, m);
+  uint32_t run = INVALID;
+  for (int r = r0; r < r1; ++r) {
+    const int p = rev ? m - 1 - r : r;
+    run = min(run, a[p]);
+    a[p] = run;
+  }
+  uint32_t x = run;  // inclusive min over the warp's runs
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x = min(x, y);
+  }
+  uint32_t before = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) before = INVALID;
+  __syncthreads();
+  if (lane == 31) warp_buf[warp] = (int)x;
+  __syncthreads();
+  for (int i = 0; i < warp; ++i) before = min(before, (uint32_t)warp_buf[i]);
+  for (int r = r0; r < r1; ++r) {
+    const int p = rev ? m - 1 - r : r;
+    a[p] = min(a[p], before);
+  }
+  __syncthreads();
+}
+
 template <bool CANONICAL, int MODE, bool AMB>
 __global__ void __launch_bounds__(THREADS)
-minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int k, int w,
+minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, int k, int w,
                 int bytes_in, int text, int antilex, const long long* __restrict__ table,
                 int rot, const uint8_t* __restrict__ amb, long long amb_nbytes, int sync_lo,
-                int sync_hi, uint32_t offset, int* __restrict__ scratch,
-                int* __restrict__ counts) {
+                int sync_hi, uint32_t offset_arg, const int* __restrict__ meta, int sub_tile,
+                int* __restrict__ scratch, int* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[THREADS / 32];
 
   const int tid = threadIdx.x;
+  // a launch captured in a CUDA graph reads its length and offset from the
+  // card (meta: n, offset bits), so that one capture serves every length
+  const int n = meta ? meta[0] : n_arg;
+  const uint32_t offset = meta ? (uint32_t)meta[1] : offset_arg;
   const int l = k + w - 1;
   const long long nw = (long long)n - l + 1;
   const long long t0 = (long long)blockIdx.x * TILE;  // first window of the tile
   const int nchars = tile_chars(l);
   const int nk = tile_kmers(w);
+  const int T = sub_tile;  // 0: the stored route; else the large-w route's block of columns
   uint8_t* s_c = smem;                                 // s_c[s] = code of char t0 - 4 + s
-  uint32_t* s_kl = reinterpret_cast<uint32_t*>(smem + key_offset(l));  // s_kl[j]: k-mer t0 - 1 + j
-  uint32_t* s_kr = s_kl + nk;
-  uint32_t* s_amb = s_kl + key_words(w, CANONICAL, MODE);  // bit b: char t0 - 32 + b
+  // stored route: s_kl[j] is the key of k-mer t0 - 1 + j (column j); large-w
+  // route: s_kl[a] is the least key of window a - 1 (columns a .. a + w - 1)
+  uint32_t* s_kl = reinterpret_cast<uint32_t*>(smem + key_offset(l));
+  uint32_t* s_kr = s_kl + (T ? TILE + 1 : nk);
+  uint32_t* s_amb = s_kl + key_words(w, CANONICAL, MODE, T);  // bit b: char t0 - 32 + b
   // the fold's per-char values: forward tF[c], complement tR[c]
   uint32_t* tF = s_amb + (AMB ? amb_words(l) : 0);
   uint32_t* tR = tF + (text ? TEXT_CHARS : CODES);
@@ -225,22 +294,14 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
   }
 
   // B2 + B3 keys: each thread hashes a contiguous run of k-mers, the first
-  // in O(k) (O(min(k, 16)) for antilex), the rest by the rolling update.
-  // Keys pack the top 16 hash bits with the column j (leftmost arm) or
-  // 0xFFFF - j (rightmost arm); k-mers outside [0, n - k] get INVALID on
-  // both arms. Column j's k-mer starts at s_c[j + 3].
-  {
-    const int per = (nk + THREADS - 1) / THREADS;
-    const int j0 = tid * per;
-    const int j1 = min(j0 + per, nk);
-    auto put = [&](int j, uint32_t hash) {
-      const long long kp = t0 - 1 + j;
-      const bool ok = kp >= 0 && kp <= (long long)n - k;
-      const uint32_t top = hash & TOP16;
-      s_kl[j] = ok ? (top | (uint32_t)j) : INVALID;
-      if (CANONICAL) s_kr[j] = ok ? (top | (0xFFFFu - (uint32_t)j)) : INVALID;
-    };
-    if (j0 < j1 && antilex) {
+  // in O(k) (O(min(k, 16)) for antilex), the rest by the rolling update,
+  // and hands each hash to put(column, hash). Keys pack the top 16 hash bits
+  // with the column j (leftmost arm) or 0xFFFF - j (rightmost arm); k-mers
+  // outside [0, n - k] get INVALID on both arms. Column j's k-mer starts at
+  // s_c[j + 3].
+  auto hash_cols = [&](int j0, int j1, auto&& put) {
+    if (j0 >= j1) return;
+    if (antilex) {
       // antilex: ~ of the first J = min(k, 16) chars & 3 packed MSB-first
       // (la); canonical XORs in the same of the reverse complement, i.e. of
       // the complemented last J chars, reversed (ra): ~la ^ ~ra = la ^ ra.
@@ -260,7 +321,7 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
         la = la << 2 | (uint32_t)(s_c[j + 2 + J] & 3) << lo;
         if (CANONICAL) ra = (ra >> 2 | (uint32_t)((s_c[j + 2 + k] & 3) ^ 2) << 30) & topJ;
       }
-    } else if (j0 < j1) {
+    } else {
       // nt and mul: the forward hash XOR_i rotl(F[c_i], i + rot), the
       // reverse-complement one XOR_i rotl(R[c_i], k - 1 - i + rot).
       uint32_t h = 0, r = 0;
@@ -278,8 +339,73 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
           r = rotl(r ^ rotl(tR[c_out], k - 1 + rot) ^ rotl(tR[c_in], rot - 1), 1);
       }
     }
+  };
+  auto key_l = [&](int j, uint32_t hash) -> uint32_t {
+    const long long kp = t0 - 1 + j;
+    return kp >= 0 && kp <= (long long)n - k ? (hash & TOP16) | (uint32_t)j : INVALID;
+  };
+  auto key_r = [&](int j, uint32_t hash) -> uint32_t {
+    const long long kp = t0 - 1 + j;
+    return kp >= 0 && kp <= (long long)n - k ? (hash & TOP16) | (0xFFFFu - (uint32_t)j)
+                                             : INVALID;
+  };
+
+  if (!T) {
+    // stored route: the keys of all TILE + w columns
+    const int per = (nk + THREADS - 1) / THREADS;
+    const int j0 = tid * per;
+    hash_cols(j0, min(j0 + per, nk), [&](int j, uint32_t hash) {
+      s_kl[j] = key_l(j, hash);
+      if (CANONICAL) s_kr[j] = key_r(j, hash);
+    });
+    __syncthreads();
+  } else {
+    // large-w route (Gil-Werman / van Herk with a core): the windows a - 1
+    // for a in [c0, c0 + T] all cover the core columns [c0 + T, c0 + w).
+    // Window a - 1 covers columns [a, a + w - 1] = the suffix from a of
+    // block 0 ([c0, c0 + T)), the core, and the first a - c0 columns of
+    // block 1 ([c0 + w, c0 + w + T)). The blocks' keys are stored and
+    // scanned, the core's are hashed, reduced and never stored: per block
+    // of T windows w + T hashes, and three mins per window.
+    uint32_t* b0l = s_kl + (CANONICAL ? 2 : 1) * (TILE + 1);
+    uint32_t* b1l = b0l + T;
+    uint32_t* b0r = b1l + T;
+    uint32_t* b1r = b0r + T;
+    for (int c0 = 0; c0 < TILE; c0 += T) {
+      const int per = (w + T + THREADS - 1) / THREADS;
+      const int j0 = c0 + tid * per;
+      uint32_t cl = INVALID, cr = INVALID;
+      hash_cols(j0, min(j0 + per, c0 + w + T), [&](int j, uint32_t hash) {
+        const uint32_t kl = key_l(j, hash);
+        const uint32_t kr = CANONICAL ? key_r(j, hash) : INVALID;
+        const int r = j - c0;
+        if (r < T) {
+          b0l[r] = kl;
+          if (CANONICAL) b0r[r] = kr;
+        } else if (r < w) {
+          cl = min(cl, kl);
+          if (CANONICAL) cr = min(cr, kr);
+        } else {
+          b1l[r - w] = kl;
+          if (CANONICAL) b1r[r - w] = kr;
+        }
+      });
+      cl = block_min(cl, s_warp);  // its barriers also end the block stores
+      if (CANONICAL) cr = block_min(cr, s_warp);
+      block_min_scan(b0l, T, true, s_warp);
+      block_min_scan(b1l, T, false, s_warp);
+      if (CANONICAL) {
+        block_min_scan(b0r, T, true, s_warp);
+        block_min_scan(b1r, T, false, s_warp);
+      }
+      for (int i = tid; i <= T; i += THREADS) {
+        s_kl[c0 + i] = min(min(i < T ? b0l[i] : INVALID, cl), i ? b1l[i - 1] : INVALID);
+        if (CANONICAL)
+          s_kr[c0 + i] = min(min(i < T ? b0r[i] : INVALID, cr), i ? b1r[i - 1] : INVALID);
+      }
+      __syncthreads();
+    }
   }
-  __syncthreads();
 
   // B3/B4/B5/B6: thread tid owns windows v = tid * WPT .. + WPT - 1
   // (tile-local) and first recomputes window v - 1, the dedup predecessor.
@@ -291,30 +417,56 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
     if (wi < 0 || wi >= nw) return INVALID;  // validity wins over SKIPPED, as on the TPU
     if (AMB && skipped) return SKIPPED;
     uint32_t ml = INVALID, mr = INVALID;
-    for (int j = v + 1; j <= v + w; ++j) {
-      ml = min(ml, s_kl[j]);
-      if (CANONICAL) mr = min(mr, s_kr[j]);
+    if (T) {
+      ml = s_kl[v + 1];
+      if (CANONICAL) mr = s_kr[v + 1];
+    } else {
+      for (int j = v + 1; j <= v + w; ++j) {
+        ml = min(ml, s_kl[j]);
+        if (CANONICAL) mr = min(mr, s_kr[j]);
+      }
     }
     const uint32_t lpos = pos0 + (ml & 0xFFFFu);
     if (!CANONICAL) return lpos;
     const uint32_t rpos = pos0 + (0xFFFFu - (mr & 0xFFFFu));
     return 2 * cnt > l ? lpos : rpos;
   };
+  // The large-w route's count for window vp of every thread, in O(l /
+  // THREADS + WPT) each: window -1's count (`part` summed over the block)
+  // plus the slides `step` of the threads before (an exclusive block scan).
+  auto first_count = [&](int part, int step) -> int {
+    int base;
+    __syncthreads();
+    block_inclusive_scan<THREADS>(part, s_warp, &base);
+    __syncthreads();
+    int total;
+    const int before = block_inclusive_scan<THREADS>(step, s_warp, &total) - step;
+    __syncthreads();
+    return base + before;
+  };
 
   const int vp = tid * WPT - 1;
   // B5: bit q of `skip` is set where window vp + q holds an ambiguous base.
   unsigned skip = 0;
   if (AMB && dirty) {
-    const int a = vp + 32, e = vp + 31 + l;  // first and last bit of window vp
-    int cnt = 0;
-    for (int i = a >> 5; i <= e >> 5; ++i) {
+    auto bits = [&](int a, int e, int i) -> int {  // set bits of word i in [a, e]
       uint32_t m = s_amb[i];
       if (i == a >> 5) m &= 0xFFFFFFFFu << (a & 31);
       if (i == e >> 5) m &= 0xFFFFFFFFu >> (31 - (e & 31));
-      cnt += __popc(m);
+      return __popc(m);
+    };
+    auto bit = [&](int b) -> int { return (s_amb[b >> 5] >> (b & 31)) & 1; };
+    int cnt = 0;
+    if (T) {
+      int part = 0, step = 0;
+      for (int i = (31 >> 5) + tid; i <= (30 + l) >> 5; i += THREADS) part += bits(31, 30 + l, i);
+      for (int q = 1; q <= WPT; ++q) step += bit(vp + q + 31 + l) - bit(vp + q + 31);
+      cnt = first_count(part, step);
+    } else {
+      const int a = vp + 32, e = vp + 31 + l;  // first and last bit of window vp
+      for (int i = a >> 5; i <= e >> 5; ++i) cnt += bits(a, e, i);
     }
     skip = cnt > 0;
-    auto bit = [&](int b) -> int { return (s_amb[b >> 5] >> (b & 31)) & 1; };
 #pragma unroll
     for (int q = 1; q <= WPT; ++q) {
       cnt += bit(vp + q + 31 + l) - bit(vp + q + 31);
@@ -323,8 +475,17 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n, int 
   }
 
   int cnt = 0;
-  if (CANONICAL)
-    for (int i = 0; i < l; ++i) cnt += (s_c[vp + 4 + i] >> 1) & 1;
+  if (CANONICAL) {
+    auto tg = [&](int s) -> int { return (s_c[s] >> 1) & 1; };
+    if (T) {
+      int part = 0, step = 0;
+      for (int i = 3 + tid; i < 3 + l; i += THREADS) part += tg(i);
+      for (int q = 0; q < WPT; ++q) step += tg(vp + 4 + q + l) - tg(vp + 4 + q);
+      cnt = first_count(part, step);
+    } else {
+      for (int i = 0; i < l; ++i) cnt += tg(vp + 4 + i);
+    }
+  }
   uint32_t prev = MODE == SYNCMERS ? INVALID : window_sel(vp, cnt, skip & 1u);
   uint32_t sel[WPT];
   unsigned keep = 0;
@@ -403,7 +564,7 @@ tile_append(const int* __restrict__ scratch, const int* __restrict__ counts,
 
 using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, int, int, int,
                              const long long*, int, const uint8_t*, long long, int, int,
-                             uint32_t, int*, int*);
+                             uint32_t, const int*, int, int*, int*);
 
 // The instances built; null for a mode that has none.
 template <bool C>
@@ -458,24 +619,29 @@ int smt_init(int device) {
 // sync_lo or sync_hi). bytes_in: one char per byte (text bytes, or 2-bit
 // codes without text), else the 2-bit byte stream; text: the tables hold
 // 256 entries, else 4. amb: the 1-bit ambiguity plane of amb_nbytes bytes,
-// or null for none. offset: added (mod 2^32) to every emitted value.
-// scratch holds ntiles * TILE ints per plane (two for super-k-mers).
+// or null for none. offset: added (mod 2^32) to every emitted value. meta:
+// null, or two ints on the card, n and the offset's bits, read in place of
+// n and offset (a CUDA-graph capture's launch, n at most the n given here).
+// sub_tile: 0 for the stored route, else the large-w route's block of
+// columns, a power of two <= min(w, TILE). scratch holds ntiles * TILE ints
+// per plane (two for super-k-mers).
 int smt_minimizer_tiles(int device, const void* words, long long nbytes, int n, int k, int w,
                         int canonical, int mode, int bytes_in, int text, int antilex,
                         const void* table, int rot, const void* amb, long long amb_nbytes,
-                        int sync_lo, int sync_hi, unsigned int offset, void* scratch,
-                        void* counts, int ntiles, void* stream) {
+                        int sync_lo, int sync_hi, unsigned int offset, const void* meta,
+                        int sub_tile, void* scratch, void* counts, int ntiles, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const TilesKernel kern = tiles_instance(canonical != 0, mode, amb != nullptr);
-  if (kern == nullptr || (table == nullptr && !antilex) || (text && !bytes_in))
+  if (kern == nullptr || (table == nullptr && !antilex) || (text && !bytes_in) ||
+      sub_tile < 0 || sub_tile > TILE || (sub_tile & (sub_tile - 1)) || sub_tile > w)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      tile_smem_bytes(k, w, canonical != 0, mode, amb != nullptr, text != 0, antilex != 0);
+  const size_t smem = tile_smem_bytes(k, w, canonical != 0, mode, amb != nullptr, text != 0,
+                                      antilex != 0, sub_tile);
   kern<<<ntiles, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)words, nbytes, n, k, w, bytes_in, text, antilex,
       (const long long*)table, rot, (const uint8_t*)amb, amb_nbytes, sync_lo, sync_hi,
-      (uint32_t)offset, (int*)scratch, (int*)counts);
+      (uint32_t)offset, (const int*)meta, sub_tile, (int*)scratch, (int*)counts);
   return (int)cudaGetLastError();
 }
 

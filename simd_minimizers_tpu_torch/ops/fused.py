@@ -11,7 +11,11 @@ TPU's row- and byte-striped repacks have no counterpart here.
 
 `fused_sketch` is `_fused_launch` (`minimizer_tiles`, `tile_offsets`; no
 host sync) then `_fused_harvest` (the total, `tile_append`): three
-wrappers, one per kernel. On a CUDA tensor each launches its kernel or
+wrappers, one per kernel. `minimizer_tiles` takes its large-w route (O(1)
+mins per window) from w = LARGE_W_MIN on, so that every w with
+TILE + w <= 2^16 fits a block's shared memory; it and `tile_append` can
+also read the length and the total on the card, for a CUDA-graph capture
+(ops/device_sketcher.py). On a CUDA tensor each launches its kernel or
 raises; on a CPU tensor each runs its plain version (`ops/pipeline.py`).
 `minimizer_tiles` has one kernel instance per strand, mode family
 (minimizers, super-k-mers, syncmers) and ambiguity plane, each with its own
@@ -46,6 +50,10 @@ SPAN_CHARS = 1 << 29  # chars per span of a long sequence or record (the JAX pac
 # kernel's static shared memory (the scan's warp sums, 32 B)
 _SMEM_MAX = 232448 - 32
 _KEY_COLUMNS = 1 << 16  # the packed (top16 | column) key keeps 16 column bits
+# w from which minimizer_tiles takes its large-w route (csrc/minimizers.cu:
+# O(1) mins per window, keys of two blocks of columns in shared memory)
+# instead of storing every key of the tile and taking w mins per window
+LARGE_W_MIN = 64  # the H100's crossover (PERF.md, chip_smoke.py's route comparison)
 
 # csrc/minimizers.cu MINIMIZERS, SUPERKMERS, SYNCMERS: the kernel's mode
 _KERNEL_MODE = {pipeline.MODE_MINIMIZERS: 0, pipeline.MODE_SUPERKMERS: 1,
@@ -74,15 +82,26 @@ MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 _ready_devices: set[int] = set()
 
 
+def sub_tile(w: int) -> int:
+    """The large-w route's block of columns for w (csrc/minimizers.cu
+    `sub_tile`): the largest power of two <= min(w, TILE); 0 below
+    LARGE_W_MIN, where the stored route runs."""
+    return 0 if w < LARGE_W_MIN else min(TILE, 1 << (w.bit_length() - 1))
+
+
 def _tile_smem_bytes(k: int, w: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                      ambiguous: bool = False, text: bool = False, kind: str = "nt") -> int:
     """Mirror of csrc/minimizers.cu tile_smem_bytes: the tile's chars, its
-    keys (whose space also stages one TILE-word plane per output plane),
-    with an ambiguity plane the tile's ambiguity bits in 32-bit words, and
-    the fold's forward and complement tables (none for antilex)."""
+    keys (whose space also stages one TILE-word plane per output plane):
+    every column's below LARGE_W_MIN, else per arm a least key per window
+    and two blocks of sub_tile(w); with an ambiguity plane the tile's
+    ambiguity bits in 32-bit words, and the fold's forward and complement
+    tables (none for antilex)."""
     l = k + w - 1
     chars = (TILE + l + 6) // 4 * 4
-    keys = max((2 if canonical else 1) * (TILE + w),
+    t = sub_tile(w)
+    per_arm = TILE + 1 + 2 * t if t else TILE + w
+    keys = max((2 if canonical else 1) * per_arm,
                (2 if mode == pipeline.MODE_SUPERKMERS else 1) * TILE)
     amb = (TILE + l + 62) // 32 * 4 if ambiguous else 0
     tables = 0 if kind == "antilex" else 2 * 4 * convert.TABLE_ENTRIES[text]
@@ -93,7 +112,8 @@ def fused_supported(k: int, w: int, canonical: bool = True, mode: str = pipeline
                     ambiguous: bool = False, text: bool = False, kind: str = "nt") -> bool:
     """Whether the kernel's geometry covers (k, w): every k-mer column of a
     tile (TILE + w of them) fits the key's 16 bits, and the tile's chars,
-    keys, ambiguity bits and tables fit one block's shared memory."""
+    keys, ambiguity bits and tables fit one block's shared memory (with the
+    large-w route, every such w at k up to about 50,000)."""
     return (k >= 1 and w >= 1 and TILE + w <= _KEY_COLUMNS
             and _tile_smem_bytes(k, w, canonical, mode, ambiguous, text, kind) <= _SMEM_MAX)
 
@@ -144,7 +164,8 @@ def _check_tables(tables: torch.Tensor | None, kind: str, text: bool) -> None:
 def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                     rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                     ambiguous: torch.Tensor | None = None, *, text: bool = False,
-                    kind: str = "nt", offset: int = 0, byte_codes: bool = False):
+                    kind: str = "nt", offset: int = 0, byte_codes: bool = False,
+                    meta: torch.Tensor | None = None):
     """Kernel 1: (scratch, counts) for the first n chars of `chars` (uint8:
     the 2-bit byte stream of convert.packed_words, with `byte_codes` 2-bit
     codes one per byte, of which the low two bits count, or with `text` the
@@ -155,7 +176,14 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     given. Tile t of TILE windows leaves its kept values plus `offset` (u32
     bits) in scratch[..., t * TILE:][:counts[t]] (int32): positions
     (minimizers), window indices (syncmers), or both as the two rows of a
-    (2, ntiles * TILE) scratch (super-k-mers)."""
+    (2, ntiles * TILE) scratch (super-k-mers). `meta`, an int32 (2,) tensor
+    on the device of chars, holds the length and the offset's bits that the
+    kernel reads in place of n and offset, as a CUDA-graph capture needs
+    (ops/device_sketcher.py; on the card only); n then sizes the launch and
+    bounds the length.
+
+    Inside a CUDA-graph capture the launch is not counted in LAUNCHES: each
+    replay of the graph counts it."""
     if chars.dtype != torch.uint8:
         raise TypeError(f"chars must be uint8, got {chars.dtype}")
     if mode not in _KERNEL_MODE:
@@ -174,9 +202,13 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
         raise ValueError(f"window length l={l} must be odd to determine strand")
     if not fused_supported(k, w, canonical, mode, ambiguous is not None, text, kind):
         raise NotImplementedError(
-            f"k={k}, w={w} is beyond the kernel's geometry (fused_supported); "
-            "wider geometry is ROADMAP A3")
+            f"k={k}, w={w} is beyond the kernel's geometry (fused_supported: TILE + w <= 2^16 "
+            "for the 16-bit column keys, and the tile in shared memory); wider geometry is "
+            "ROADMAP A12")
     _check_tables(tables, kind, text)
+    if meta is not None and (meta.dtype != torch.int32 or meta.shape != (2,)
+                             or meta.device.type != "cuda" or meta.device != chars.device):
+        raise ValueError("meta must be an int32 (2,) tensor on the card of chars")
     if _device_kind(chars) == "cpu":
         return pipeline.minimizer_tiles_plain(chars, n, k, w, tables, rot_offset, canonical, TILE,
                                               mode, ambiguous, text=text, kind=kind,
@@ -205,10 +237,12 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
         int(bytes_in), int(text), int(kind == "antilex"),
         None if tables is None else tables.data_ptr(), rot_offset,
         None if ambiguous is None else ambiguous.data_ptr(),
-        0 if ambiguous is None else ambiguous.numel(), lo, hi, offset, scratch.data_ptr(),
+        0 if ambiguous is None else ambiguous.numel(), lo, hi, offset,
+        None if meta is None else meta.data_ptr(), sub_tile(w), scratch.data_ptr(),
         counts.data_ptr(), ntiles, torch.cuda.current_stream(dev).cuda_stream),
         "minimizer_tiles")
-    LAUNCHES[instance_name(canonical, mode, ambiguous is not None)] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[instance_name(canonical, mode, ambiguous is not None)] += 1
     return scratch, counts
 
 
@@ -227,31 +261,43 @@ def tile_offsets(counts: torch.Tensor) -> torch.Tensor:
                                 offsets.data_ptr(),
                                 torch.cuda.current_stream(counts.device).cuda_stream),
            "tile_offsets")
-    LAUNCHES["tile_offsets"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["tile_offsets"] += 1
     return offsets
 
 
 def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor,
-                total: int) -> torch.Tensor:
+                total: int | None) -> torch.Tensor:
     """Kernel 3: each tile's run of scratch at its offset: (total,) int32,
     or (2, total) for the two-plane scratch of super-k-mers, both planes
-    with the one set of offsets."""
+    with the one set of offsets. With total None (on the card only) the
+    kernel reads the total from offsets, as a CUDA-graph capture needs: the
+    result is a flat buffer of planes * ntiles * TILE int32 whose first
+    planes * offsets[-1] values are the planes one after the other, the
+    rest undefined."""
     _require_int32(scratch, counts, offsets)
+    planes = scratch.shape[0] if scratch.dim() == 2 else 1
     if _device_kind(scratch) == "cpu":
+        if total is None:
+            raise ValueError("the total is read on the card only: pass it on the CPU")
         return pipeline.tile_append_plain(scratch, counts, offsets, total, TILE)
     if (scratch.dim() not in (1, 2) or scratch.shape[-1] != counts.numel() * TILE
             or offsets.numel() != counts.numel() + 1):
         raise ValueError("scratch, counts and offsets disagree on the tile count")
-    planes = scratch.shape[0] if scratch.dim() == 2 else 1
-    out = torch.empty(*scratch.shape[:-1], total, dtype=torch.int32, device=scratch.device)
-    if total == 0:
+    if total is None:
+        out = torch.empty(planes * counts.numel() * TILE, dtype=torch.int32,
+                          device=scratch.device)
+    else:
+        out = torch.empty(*scratch.shape[:-1], total, dtype=torch.int32, device=scratch.device)
+    if total == 0 or counts.numel() == 0:
         return out
     lib = _library(scratch.device)
     _check(lib.smt_tile_append(scratch.device.index, scratch.data_ptr(), counts.data_ptr(),
                                offsets.data_ptr(), counts.numel(), planes, out.data_ptr(),
                                torch.cuda.current_stream(scratch.device).cuda_stream),
            "tile_append")
-    LAUNCHES["tile_append"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["tile_append"] += 1
     return out
 
 

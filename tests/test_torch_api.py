@@ -216,7 +216,8 @@ def test_imports_without_jax():
         "import torch\n"
         "import simd_minimizers_tpu_torch as smt\n"
         "from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline, _build\n"
-        "from simd_minimizers_tpu_torch.parallel import multihost\n"
+        "from simd_minimizers_tpu_torch.parallel import multihost, shard\n"
+        "from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher\n"
         "from simd_minimizers_tpu_torch.seq import fasta\n"
         "from simd_minimizers_tpu_torch.utils import device, profiling\n"
         "from simd_minimizers_tpu_torch import sketch_fasta\n"
@@ -245,6 +246,15 @@ def test_imports_without_jax():
         "assert isinstance(out.seq, smt.GenericSeq) and out.positions.size\n"
         "assert list(out.positions) == list(b.run_scalar_once(text))\n"
         "assert list(out.values_u64()) == list(b.run_scalar(text).values_u64())\n"
+        "codes = smt.AsciiSeq(b'ACGTGCTCAGAGACTCAG' * 40).codes()\n"
+        "want = backend.sketch_records([codes], 5, 7, smt.NtHasher(5), device='cpu')[0]\n"
+        "sk = ShortSeqSketcher(5, 7, smt.NtHasher(5), device='cpu')\n"
+        "assert sk.sketch_many([codes, codes[:5]])[0].tolist() == want.tolist()\n"
+        "got = shard.fused_sharded_sketch(codes, 5, 7, smt.NtHasher(5),\n"
+        "                                 mesh=shard.default_mesh(3, device='cpu'))\n"
+        "assert got.tolist() == want.tolist()\n"
+        "assert multihost.multihost_sketch(codes, 5, 7, smt.NtHasher(5),\n"
+        "                                  device='cpu').tolist() == want.tolist()\n"
         "assert sys.modules['jax'] is None and sys.modules['simd_minimizers_tpu'] is None\n"
         "print('ok')\n"
     )
@@ -264,7 +274,10 @@ def test_port_never_imports_the_jax_package():
     """No module of the port, and not chip_smoke.py, imports
     simd_minimizers_tpu or jax, at any depth of its code."""
     files = _port_files()
-    assert len(files) >= 19
+    assert len(files) >= 21
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {os.path.join('simd_minimizers_tpu_torch', 'ops', 'device_sketcher.py'),
+            os.path.join('simd_minimizers_tpu_torch', 'parallel', 'shard.py')} <= names
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

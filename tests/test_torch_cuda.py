@@ -5,7 +5,9 @@ syncmers x ambiguity plane), on 2-bit DNA (packed and one code per byte)
 and on text, with the nt, mul and antilex hashers, with a launch offset,
 and both small kernels, around tile seams; and the drivers that run them:
 sketch_long across many seams, sketch_records (pinned downloads reused
-across waves) and the batch engine behind run_batch. The port
+across waves) and the batch engine behind run_batch; the large-w route
+(both routes bit-equal, w up to 61,439), ShortSeqSketcher's captured
+graph, sharded sketching on one card and NCCL in a world of one. The port
 runs on its own classes; the independent reference is the JAX package's
 NumPy oracle with the JAX package's hashers (both import no JAX).
 
@@ -144,15 +146,18 @@ def test_tile_offsets_many_tiles(dev, ntiles):
 
 @pytest.mark.parametrize("canonical", [False, True])
 def test_widest_geometry(dev, canonical):
-    # the largest w the gate admits uses (nearly) all of a block's shared memory
+    # the largest w the gate admits: TILE + w = 2^16, the 16-bit column key
+    # (the large-w route keeps shared memory well inside a block's)
     k = 21
     w = max(w for w in range(1, 1 << 16, 2 if canonical else 1)
             if fused.fused_supported(k, w, canonical))
-    assert not fused.fused_supported(k, w + 2, canonical)
-    codes = np.random.default_rng(w).integers(0, 4, 4 * w + k + w - 2, dtype=np.uint8)
+    assert not fused.fused_supported(k, w + 2, canonical) and TILE + w + 2 > 1 << 16
+    codes = np.random.default_rng(w).integers(0, 4, 2 * TILE + 17 + k + w - 2, dtype=np.uint8)
     got, want = _both(codes, k, w, NtHasher(k, canonical=canonical), dev)
     np.testing.assert_array_equal(got, want)
-    assert got.size >= 4
+    np.testing.assert_array_equal(got.astype(np.uint32), _oracle(codes, k, w, NtHasher(
+        k, canonical=canonical)))
+    assert got.size >= 1
 
 
 def test_low_entropy_ties(dev):
@@ -266,12 +271,13 @@ def test_superkmers_many_tiles(dev, canonical):
                                       (CLOSED, True), (SKM, True)])
 @pytest.mark.parametrize("canonical", [False, True])
 def test_widest_geometry_modes(dev, mode, amb, canonical):
-    # the ambiguity words and the second staging plane count against the gate
+    # the widest w of each instance: TILE + w = 2^16 with the ambiguity
+    # words and the second staging plane in shared memory
     k, step = 21, 2 if canonical else 1
     w = max(w for w in range(1, 1 << 16, step)
             if fused.fused_supported(k, w, canonical, mode, amb))
     assert not fused.fused_supported(k, w + step, canonical, mode, amb)
-    n = 4 * w + k + w - 2
+    n = 2 * TILE + 17 + k + w - 2
     rng = np.random.default_rng(w)
     codes = rng.integers(0, 4, n, dtype=np.uint8)
     mask = (rng.random(n) < 1e-4) if amb else None
@@ -404,15 +410,15 @@ def test_each_instance_with_text_and_hashers_vs_its_plain_version(dev, canonical
     (pipeline.MODE_MINIMIZERS, True, False, AntiLexHasher, True),
     (SKM, False, True, AntiLexHasher, False)])
 def test_widest_geometry_text(dev, mode, amb, canonical, cls, text):
-    """The fold's tables count against the gate (2 KB for text, none for
-    antilex): the widest w it admits runs."""
+    """The widest w the gate admits runs with the fold's tables in shared
+    memory too (2 KB for text, none for antilex)."""
     k = 21
     step = 2 if canonical else 1
     kind = "antilex" if cls is AntiLexHasher else "mul"
     w = max(w for w in range(1, 1 << 16, step)
             if fused.fused_supported(k, w, canonical, mode, amb, text, kind))
     assert not fused.fused_supported(k, w + step, canonical, mode, amb, text, kind)
-    n = 4 * w + k + w - 2
+    n = 2 * TILE + 17 + k + w - 2
     rng = np.random.default_rng(w)
     codes = rng.integers(0, 256 if text else 4, n, dtype=np.uint8)
     mask = (rng.random(n) < 1e-4) if amb else None
@@ -636,3 +642,191 @@ def test_wall_split_on_card(dev):
             np.testing.assert_array_equal(g, p)
     assert {"upload", "mask packing", "kernels", "download", "seam merge", "split by record",
             "fold reads to codes", "slot fill"} <= set(parts)
+
+
+# -- large w, the short-sequence sketcher, sharded and multi-process -------
+
+LARGE_W = [128, 1000, 4095, 4096, 5001, 21_721, 21_723, 32_767, 61_439]
+
+
+@pytest.mark.parametrize("w", LARGE_W)
+@pytest.mark.parametrize("canonical", [False, True])
+def test_large_w_vs_plain_and_oracle(dev, w, canonical):
+    """The large-w route in every mode family, with and without a mask, on
+    2-bit DNA (nt) and text (mul), across tile seams: against the plain
+    version on the card and the oracle."""
+    k = 21 if (w % 2 or not canonical) else 22
+    l = k + w - 1
+    rng = np.random.default_rng(w + canonical)
+    n = 2 * TILE + 17 + l - 1
+    for text, cls in ((False, NtHasher), (True, MulHasher)):
+        codes = rng.integers(0, 256 if text else 4, n, dtype=np.uint8)
+        h = cls(k, canonical=canonical)
+        for mode, amb in ((pipeline.MODE_MINIMIZERS, None), (SKM, None), (CLOSED, None),
+                          (pipeline.MODE_MINIMIZERS, rng.random(n) < 2e-5),
+                          (CLOSED, _clustered_mask(n, l, rng))):
+            got, want = _both(codes, k, w, h, dev, mode, amb, text=text)
+            _assert_planes(got, want, _oracle(codes, k, w, h, mode, amb))
+
+
+@pytest.mark.parametrize("w", [16, 64, 127, 128, 1001, 4095])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_routes_agree(dev, w, canonical, monkeypatch):
+    """Both routes at the same w (the threshold moved below and above it):
+    bit-equal to each other and to the plain version, every instance."""
+    k = 21 if (w % 2 or not canonical) else 22
+    rng = np.random.default_rng(w)
+    n = 3 * TILE + 5 + k + w - 2
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    mask = _clustered_mask(n, k + w - 1, rng)
+    h = NtHasher(k, canonical=canonical)
+    for mode, amb in ((pipeline.MODE_MINIMIZERS, None), (SKM, None), (SKM, mask),
+                      (OPEN if w % 2 else CLOSED, mask)):
+        runs = []
+        for threshold in (1, 1 << 16):
+            monkeypatch.setattr(fused, "LARGE_W_MIN", threshold)
+            runs.append(_both(codes, k, w, h, dev, mode, amb))
+        _assert_planes(runs[0][0], runs[1][0], runs[0][1])
+        _assert_planes(runs[0][0], runs[0][1], runs[1][1])
+
+
+def test_large_w_offset_and_code_bytes(dev):
+    """The large-w route with a u32 offset near 2^32 and code bytes."""
+    k, w = 21, 32_767
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, 2 * TILE + k + w, dtype=np.uint8)
+    h = NtHasher(k, canonical=True)
+    (kind, canonical, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev)
+    offset = (1 << 32) - 3000
+    args = (convert.code_bytes(codes | 0xF0, dev), codes.size, k, w, tables, rot, canonical)
+    got = fused.fused_sketch(*args, offset=offset, byte_codes=True)
+    want = pipeline.run_pipeline(*args, offset=offset, byte_codes=True)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  (_oracle(codes, k, w, h).astype(np.uint64) + offset)
+                                  .astype(np.uint32))
+
+
+def test_large_w_builders_on_card(dev):
+    """Builder.run, run_skip_ambiguous_windows and run_batch at w = 32,767."""
+    k, w = 21, 32_767
+    rng = np.random.default_rng(6)
+    seq = PackedSeqVec.random(200_000, rng)
+    amb = np.zeros(200_000, bool)
+    amb[[70_000, 150_000]] = True
+    for b in (api.canonical_minimizers(k, w), api.minimizers(k, w).super_kmers(),
+              api.closed_syncmers(k, w)):
+        out, want = b.run(seq, device=dev), b.run_scalar(seq)
+        np.testing.assert_array_equal(out.positions, want.positions)
+    b = api.canonical_minimizers(k, w)
+    np.testing.assert_array_equal(
+        b.run_skip_ambiguous_windows_once(PackedNSeqVec(seq, amb), device=dev),
+        b.run_scalar(seq, ambiguous=amb).positions)
+    reads = [seq.slice(0, 40_000), seq.slice(1000, 120_000), seq.slice(5, 20)]
+    actg = np.frombuffer(b"ACTG", np.uint8)  # code order
+    rid, pos = b.run_batch([actg[r.codes()].tobytes() for r in reads], device=dev)
+    for i, r in enumerate(reads):
+        np.testing.assert_array_equal(pos[rid == i], b.run_scalar_once(r))
+
+
+@pytest.mark.parametrize("mode", pipeline.MODES)
+def test_short_seq_sketcher_on_card(dev, mode):
+    """One captured graph per sketcher: sketch_many over lengths 0..max_chars
+    against the oracle, each replay counted once per kernel, the capture
+    not at all; longer inputs refused."""
+    from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher
+
+    k, w = (21, 11) if mode != SKM else (5, 7)
+    canonical = mode != OPEN
+    h = NtHasher(k, canonical=canonical)
+    before = dict(fused.LAUNCHES)
+    sk = ShortSeqSketcher(k, w, convert.hasher_from(h), mode, device=dev)
+    assert fused.LAUNCHES == before and sk.max_chars == 8192 + k + w - 2
+    rng = np.random.default_rng(17)
+    lens = [0, k + w - 2, k + w - 1, 64, 1024, 4096 + 30, 8192, sk.max_chars]
+    lens += list(rng.integers(1, sk.max_chars + 1, 40))
+    seqs = [rng.integers(0, 4, int(n), dtype=np.uint8) for n in lens]
+    outs = sk.sketch_many(seqs)
+    ran = sum(s.size >= k + w - 1 for s in seqs)
+    name = fused.instance_name(canonical, mode, False)
+    assert fused.LAUNCHES[name] - before[name] == ran
+    assert fused.LAUNCHES["tile_append"] - before["tile_append"] == ran
+    for s, got in zip(seqs, outs, strict=True):
+        want = _oracle(s, k, w, h, mode) if s.size >= k + w - 1 else (
+            (np.zeros(0, np.uint32),) * 2 if mode == SKM else np.zeros(0, np.uint32))
+        for g, p in zip(got if mode == SKM else (got,), want if mode == SKM else (want,),
+                        strict=True):
+            np.testing.assert_array_equal(g, p)
+    got = sk.harvest(sk.launch(seqs[6], offset=(1 << 32) - 10))
+    want = _oracle(seqs[6], k, w, h, mode)
+    np.testing.assert_array_equal((got[0] if mode == SKM else got),
+                                  ((want[0] if mode == SKM else want).astype(np.uint64)
+                                   + (1 << 32) - 10).astype(np.uint32))
+    with pytest.raises(AssertionError):
+        sk.launch(np.zeros(sk.max_chars + 1, np.uint8))
+
+
+def test_short_seq_measure_floor(dev):
+    from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher
+
+    h = convert.hasher_from(NtHasher(21, canonical=True))
+    codes = np.random.default_rng(3).integers(0, 4, 8192, dtype=np.uint8)
+    res = ShortSeqSketcher(21, 11, h, donate=False, device=dev).measure_floor(codes, m=20)
+    assert {"per_call_us", "sync_us", "device_floor_us", "replay_us"} <= set(res)
+    assert all(v > 0 for v in res.values())
+    assert "device_floor_us" not in ShortSeqSketcher(21, 11, h, device=dev).measure_floor(
+        codes, m=5, probes=1)
+
+
+@pytest.mark.parametrize("mode,masked", [(pipeline.MODE_MINIMIZERS, False),
+                                         (pipeline.MODE_MINIMIZERS, True), (SKM, False),
+                                         (CLOSED, True), (OPEN, False)])
+def test_sharded_on_one_card(dev, mode, masked):
+    """fused_sharded_sketch over ["cuda:0"] and ["cuda:0"] * 4 (and 7 shards
+    of a short input, some empty): equal to one launch and the oracle."""
+    from simd_minimizers_tpu_torch.parallel import shard
+
+    k, w = 21, 11
+    rng = np.random.default_rng(50 + masked)
+    h = NtHasher(k, canonical=mode != OPEN)
+    for n in (300_000, 40):
+        codes = rng.integers(0, 4, n, dtype=np.uint8)
+        amb = (rng.random(n) < 1e-3) if masked else None
+        want = _oracle(codes, k, w, h, mode, amb)
+        for mesh in ([dev], [dev] * 4, [dev] * 7):
+            got = shard.fused_sharded_sketch(codes, k, w, convert.hasher_from(h), mode, amb,
+                                             mesh=mesh)
+            for g, p in zip(got if mode == SKM else (got,), want if mode == SKM else (want,),
+                            strict=True):
+                np.testing.assert_array_equal(g, p)
+
+
+def test_multihost_nccl_world_of_one(dev):
+    """multihost_sketch under an NCCL group of one process, and the ragged
+    all-gather of two planes over it."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from simd_minimizers_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(torch.device("cuda", 0))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        rng = np.random.default_rng(60)
+        codes = rng.integers(0, 4, 100_000, dtype=np.uint8)
+        h = NtHasher(21, canonical=True)
+        got = multihost.multihost_sketch(codes, 21, 11, convert.hasher_from(h), SKM)
+        for g, p in zip(got, _oracle(codes, 21, 11, h, SKM), strict=True):
+            np.testing.assert_array_equal(g, p)
+        a, b = np.arange(7, dtype=np.uint32), np.arange(100, 107, dtype=np.uint32)
+        parts, aux = multihost._allgather_ragged_planes([a, b], 1)
+        np.testing.assert_array_equal(parts[0], a)
+        np.testing.assert_array_equal(aux[0], b)
+    finally:
+        dist.destroy_process_group()

@@ -85,14 +85,27 @@ def test_short_input_is_empty(n):
 
 
 def test_geometry_gate():
-    # the tile's chars and keys must fit one block's shared memory: two key
-    # arrays for canonical, one for forward
+    # every w with TILE + w <= 2^16 (the 16-bit column key), both strands:
+    # from LARGE_W_MIN on, the large-w route keeps two blocks of keys per
+    # arm instead of all TILE + w; the tile's chars must still fit one
+    # block's shared memory
     assert fused.fused_supported(21, 21_000, canonical=True)
-    assert not fused.fused_supported(21, 22_000, canonical=True)
+    assert fused.fused_supported(21, 22_000, canonical=True)
     assert fused.fused_supported(21, 40_000, canonical=False)
-    assert not fused.fused_supported(21, 43_000, canonical=False)
+    assert fused.fused_supported(21, 43_000, canonical=False)
+    for canonical in (False, True):
+        assert fused.fused_supported(21, (1 << 16) - fused.TILE, canonical)
+        assert not fused.fused_supported(21, (1 << 16) - fused.TILE + 1, canonical)
     assert fused.fused_supported(21, 11) and fused.fused_supported(64, 2)
     assert not fused.fused_supported(200_000, 11)
+    assert fused.sub_tile(fused.LARGE_W_MIN - 1) == 0
+    assert fused.sub_tile(5000) == fused.TILE and fused.sub_tile(3000) == 2048
+    # the large-w route: per arm the least key of TILE + 1 windows and two
+    # blocks of sub_tile(w) keys, whatever w
+    w = 32_767
+    assert (fused._tile_smem_bytes(21, w, True)
+            == ((fused.TILE + 21 + w - 1 + 6) // 4 * 4 + 15) // 16 * 16
+            + 4 * 2 * (fused.TILE + 1 + 2 * fused.TILE) + 32)
     # chars, keys, then the nt fold's 2-bit tables (2 x 4 words)
     assert fused._tile_smem_bytes(21, 11, True) == 4144 + 2 * (fused.TILE + 11) * 4 + 32
     # super-k-mers stage two planes of TILE words in the keys' space; an
@@ -103,14 +116,19 @@ def test_geometry_gate():
     assert (fused._tile_smem_bytes(21, 11, True, ambiguous=True)
             == fused._tile_smem_bytes(21, 11, True) + (fused.TILE + 31 + 62) // 32 * 4)
     assert fused.fused_supported(21, 40_000, False, skm)
-    assert not fused.fused_supported(21, 42_376, False, ambiguous=True)
+    assert fused.fused_supported(21, 42_376, False, ambiguous=True)
     assert fused.fused_supported(21, 42_376, False)
+    # the stored route below LARGE_W_MIN: every column's key, per arm
+    w = fused.LARGE_W_MIN - 1
+    assert (fused._tile_smem_bytes(21, w, True)
+            == ((fused.TILE + 21 + w - 1 + 6) // 4 * 4 + 15) // 16 * 16
+            + 4 * 2 * (fused.TILE + w) + 32)
 
 
-@pytest.mark.parametrize("k,w", [(200_001, 11), (21, 43_001)])
+@pytest.mark.parametrize("k,w", [(200_001, 11), (21, 61_441)])
 def test_beyond_gate_raises_on_cpu(k, w):
     words = torch.zeros(1 << 16, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         backend.sketch(words, 1 << 18, k, w, smt.NtHasher(k, canonical=(k + w) % 2 == 0))
 
 
@@ -186,6 +204,15 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError):
         fused.fused_sketch(torch.zeros(8, dtype=torch.uint8, device="meta"), 30, 5, 7,
                            table, 23, False)
+    # the graph capture's arguments: the length read on the card, the total too
+    tables = torch.zeros(2, 4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="on the card"):
+        fused.minimizer_tiles(torch.zeros(8, dtype=torch.uint8), 30, 5, 7, tables, 23, False,
+                              meta=torch.zeros(2, dtype=torch.int32))
+    counts = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="on the card"):
+        fused.tile_append(torch.zeros(fused.TILE, dtype=torch.int32), counts,
+                          torch.zeros(2, dtype=torch.int32), None)
 
 
 def test_cuda_request_without_cuda_raises():

@@ -218,9 +218,11 @@ def test_text_geometry_gate():
         for text in (False, True):
             assert (fused._tile_smem_bytes(21, 11, canonical, mode, amb, text, "antilex")
                     == dna - 32)
-    w = max(w for w in range(1, 1 << 16) if fused.fused_supported(21, w, False))
-    assert not fused.fused_supported(21, w, False, text=True)
-    assert fused.fused_supported(21, w - 512, False, text=True)
-    assert fused.fused_supported(21, w, False, text=True, kind="antilex")
-    assert fused.fused_supported(21, w + 1, False, kind="antilex")
+    # the tables count on the large-w route too, but there the 16-bit
+    # column bounds w first: 4096 + w <= 2^16 for every input and hasher
+    assert (fused._tile_smem_bytes(21, 32_767, True, text=True, kind="mul")
+            == fused._tile_smem_bytes(21, 32_767, True) + 2016)
+    for text, kind in ((False, "nt"), (True, "mul"), (True, "antilex"), (False, "antilex")):
+        assert fused.fused_supported(21, 61_440, False, text=text, kind=kind)
+        assert not fused.fused_supported(21, 61_441, False, text=text, kind=kind)
     assert fused.fused_supported(21, 2047, True, text=True)
