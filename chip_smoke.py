@@ -23,8 +23,9 @@ plain pipeline and `Builder.run`, checks the density of the mask-free nt
 and mul paths (2/(w+1) for minimizers and super-k-mers, 2/w for closed
 and 1/w for open syncmers, each within 0.01; antilex's density is higher
 on random input and is held only by equality), times each kernel, the
-kernel path and their plain versions with CUDA events (and `torch.cumsum`
-beside `tile_offsets`), computes each kernel's bound from this run's
+kernel path and their plain versions with CUDA events (`tile_offsets` and
+`torch.cumsum` beside it as device time per call in a replayed CUDA graph,
+and as eager calls), computes each kernel's bound from this run's
 inputs, measures the peak device memory of both paths, and splits a warm
 `Builder.run` into upload, kernel path and download (through pinned
 memory, with the pageable `.cpu()` beside it). It times the host packing
@@ -63,10 +64,17 @@ peak device memory:
   of the same launches on the card and, for 10,000 reads, to the oracle;
   each run's wall split into stages, and each kernel against its plain
   version on its widest launch, bounded over the windows its reads own.
-Then the paths of the last slice:
-- the two routes of the sliding minimum at w = 16..4096 (1e7 bases, both
-  strands), bit-equal to each other, timed in turns: where the large-w
-  route starts to win (ops/fused.LARGE_W_MIN);
+Then the paths of the last slices:
+- the stored route of minimizer_tiles (conflict-free keys, doubling
+  passes) at w = 1..63 in four modes (minimizers, super-k-mers, closed
+  syncmers, minimizers with the chromosome mask) on both strands at 1e7
+  bases, and k = 64 and 1,001 at w = 5, each launch against its plain
+  version; every pass count at the main shape, in turns; tile_offsets on
+  a 2^29-char span's 131,072 counts beside torch.cumsum;
+- the two routes of the sliding minimum from w = 16 to the largest w the
+  stored route fits (1e7 bases, both strands), bit-equal to each other,
+  timed in turns: where the large-w route starts to win
+  (ops/fused.LARGE_W_MIN);
 - large w at 1e8 chars through `Builder.run`: canonical nt at w = 32,767,
   forward nt at w = 61,439 with the chromosome mask, forward mul text at
   32,767, canonical super-k-mers and forward closed syncmers at 32,767,
@@ -162,6 +170,62 @@ def _median_ms(fn, batches: int, reps: int, warmup: int) -> tuple[float, float, 
 
     ts = sorted(cuda_time_ms(fn, reps=reps, warmup=warmup) for _ in range(batches))
     return ts[len(ts) // 2], ts[0], ts[-1]
+
+
+def _graph_ms(fn, reps: int = 20, replays: int = 5) -> tuple[float, float, float]:
+    """(median, min, max) device ms per `fn()` call over `replays` replays of
+    one CUDA graph that holds `reps` calls: no host time between the calls,
+    so a kernel that takes microseconds is timed, not its Python wrapper."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ts.append(start.elapsed_time(end) / reps)
+    ts.sort()
+    return ts[len(ts) // 2], ts[0], ts[-1]
+
+
+def _scan_timing(rec, counts, note):
+    """tile_offsets against its plain version on `counts`; its time and
+    torch.cumsum's, both as device time per call in a replayed CUDA graph
+    (the kernels' numbers) and as eager calls (device time of back-to-back
+    calls from Python, which the host's enqueue bounds at this size).
+    Returns the offsets."""
+    import torch
+
+    from simd_minimizers_tpu_torch.ops import fused, pipeline
+
+    offsets = fused.tile_offsets(counts)
+    err = _max_abs_err(offsets, pipeline.tile_offsets_plain(counts))
+    ntiles = counts.numel()
+    ours = _graph_ms(lambda: fused.tile_offsets(counts))
+    lib = _graph_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32))
+    rec.entry("tile_offsets", 841, err, ours,
+              _median_ms(lambda: pipeline.tile_offsets_plain(counts), 5, 10, 2),
+              _bound(4 * ntiles + 4 * (ntiles + 1), 2 * ntiles), lib)
+    eager = _median_ms(lambda: fused.tile_offsets(counts), 5, 10, 2)
+    eager_lib = _median_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32), 5, 10, 2)
+    print(f"  tile_offsets on {ntiles} counts: device {ours[0]:.5f} ms ({ours[1]:.5f}.."
+          f"{ours[2]:.5f}), torch.cumsum {lib[0]:.5f} ms ({lib[1]:.5f}..{lib[2]:.5f}); eager "
+          f"calls {eager[0]:.5f} ms, torch.cumsum {eager_lib[0]:.5f} ms; {note}")
+    return offsets
 
 
 def _peak_extra_mib(fn) -> float:
@@ -931,7 +995,8 @@ def _large_w(ctx):
         w, mode = b.w, b._mode
         l = k + w - 1
         s_in = text if inp == "text" else seq
-        print(f"large w: {name}, k={k} w={w} ({inp}; sub_tile {fused.sub_tile(w)}):")
+        print(f"large w: {name}, k={k} w={w} ({inp}; sub_tile "
+              f"{fused.sub_tile(k, w, b.canonical, mode, masked, inp == 'text')}):")
         out, wall, launched, peak = _main_path(
             lambda: b.run(s_in, ambiguous=mask if masked else None, device=dev))
         instance = fused.instance_name(b.canonical, mode, masked)
@@ -1149,32 +1214,125 @@ def _sharded(ctx):
     torch.cuda.empty_cache()
 
 
-CROSSOVER_W = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)  # w of the route comparison
+CROSSOVER_W = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 N_CROSSOVER = 10**7  # chars of the route comparison
+STORED_W = (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63)  # w of the stored-route sweep
+N_STORED = 10**7  # chars of the stored-route sweep
+N_SPAN_TILES = 1 << 17  # tiles of a 2^29-char span: tile_offsets' count there
 
 
-def _crossover(ctx):
-    """`minimizer_tiles` by both routes at w = 16..4096 (canonical and
-    forward nt, 1e7 random bases, the launch the threshold decides), each
-    bit-equal to the other, timed in turns; prints the w from which the
-    large-w route wins in both strands."""
+def _stored_sweep(ctx):
+    """The stored route of minimizer_tiles (conflict-free keys, doubling
+    passes): both strands x minimizers, super-k-mers, closed syncmers and
+    minimizers with the chromosome mask x w in STORED_W at 1e7 bases, and k
+    = 64 and 1,001 at w = 5, each launch against minimizer_tiles_plain on
+    the card and timed; then at the main shape (k=21, w=11, 1e8 bases)
+    every pass count, in turns (0 passes: w conflict-free loads per window
+    and arm), bit-equal; and tile_offsets on a 2^29-char span's 131,072
+    counts beside torch.cumsum."""
     import numpy as np
     import torch
 
     import simd_minimizers_tpu_torch as smt
     from simd_minimizers_tpu_torch import convert
-    from simd_minimizers_tpu_torch.ops import fused
+    from simd_minimizers_tpu_torch.ops import fused, pipeline
+
+    dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
+    rng = np.random.default_rng(ctx["seed"] + 9)
+    m = N_STORED
+    seq = smt.PackedSeqVec.random(m, rng)
+    chars = convert.packed_words(seq, dev)
+    plane = convert.ambiguity_plane(_chromosome_mask(m, rng), m, dev)
+    tile = fused.TILE
+    modes = ((pipeline.MODE_MINIMIZERS, None), (pipeline.MODE_SUPERKMERS, None),
+             (pipeline.MODE_CLOSED_SYNCMERS, None), (pipeline.MODE_MINIMIZERS, plane))
+    cases = [(21 if (w % 2 or not c) else 22, w, c) for c in (True, False) for w in STORED_W]
+    cases += [(k, 5, c) for c in (True, False) for k in (64 + c, 1001)]
+    print(f"stored route: {len(cases)} (k, w, strand) x {len(modes)} modes at {m} bases, each "
+          "launch against its plain version (ms: minimizer_tiles per mode):")
+    for k, w, canonical in cases:
+        if fused.sub_tile(k, w, canonical) != 0:
+            raise RuntimeError(f"k={k} w={w} does not take the stored route")
+        (kind, can, rot), tables = convert.hasher_tensors(smt.NtHasher(k, canonical), dev)
+        times = []
+        for mode, amb in modes:
+            args = (chars, m, k, w, tables, rot, can, mode, amb)
+            scratch, counts = fused.minimizer_tiles(*args)
+            p_scratch, p_counts = pipeline.minimizer_tiles_plain(*args[:7], tile, *args[7:])
+            live = torch.arange(tile, device=dev) < counts[:, None]
+            err = max([_max_abs_err(counts, p_counts)] + [
+                _max_abs_err(g[live], p[live])
+                for g, p in zip(scratch.view(-1, counts.numel(), tile),
+                                p_scratch.view(-1, counts.numel(), tile))])
+            if err:
+                raise RuntimeError(f"stored route k={k} w={w} {mode}: max_abs_err {err}")
+            times.append(_median_ms(lambda: fused.minimizer_tiles(*args), 3, 3, 1)[0])
+            del scratch, counts, p_scratch, p_counts, live
+        print(f"  {'canonical' if canonical else 'forward'} k={k} w={w} (passes "
+              f"{fused.min_passes(w)}): bit-equal; " + " / ".join(f"{t:.4f}" for t in times)
+              + f"; {note}")
+    del chars, plane
+    torch.cuda.empty_cache()
+
+    # every pass count at the main shape, in turns
+    chars = ctx["chars_dna"]
+    slack = fused.PASS_SLACK
+    top = W.bit_length() - 1
+    print(f"stored route at k={K} w={W}, {N} bases: passes (ms of minimizer_tiles, "
+          f"PASS_SLACK = {slack}, {fused.min_passes(W)} passes):")
+    try:
+        for canonical in (True, False):
+            (kind, can, rot), tables = convert.hasher_tensors(smt.NtHasher(K, canonical), dev)
+            args = (chars, N, K, W, tables, rot, can)
+            times, outs = {}, {}
+            for order in (range(top + 1), reversed(range(top + 1))):
+                for passes in order:
+                    fused.PASS_SLACK = top - passes
+                    outs[passes] = fused.fused_sketch(*args)
+                    times.setdefault(passes, []).append(
+                        _median_ms(lambda: fused.minimizer_tiles(*args), 3, 10, 2)[0])
+            if not all(torch.equal(o, outs[0]) for o in outs.values()):
+                raise RuntimeError("the pass counts disagree")
+            print(f"  {'canonical' if canonical else 'forward'}: " + ", ".join(
+                f"{p} passes ({-(-W // (1 << p))} loads) {sum(t) / 2:.4f}"
+                for p, t in times.items()) + f"; bit-equal; {note}")
+            del outs
+    finally:
+        fused.PASS_SLACK = slack
+
+    # tile_offsets on a 2^29-char span's tile count
+    g = torch.Generator(device=dev).manual_seed(ctx["seed"])
+    counts = torch.randint(0, 2 * tile // (W + 1), (N_SPAN_TILES,), dtype=torch.int32,
+                           device=dev, generator=g)
+    _scan_timing(rec, counts, note)
+
+
+def _crossover(ctx):
+    """`minimizer_tiles` by both routes at w = 16 .. the largest w whose
+    stored layout fits a block's shared memory (canonical and forward nt,
+    1e7 random bases, the launch the threshold decides), each bit-equal to
+    the other, timed in turns; prints the w from which the large-w route
+    wins in both strands at every larger w."""
+    import numpy as np
+    import torch
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert
+    from simd_minimizers_tpu_torch.ops import fused, pipeline
 
     dev, note = ctx["dev"], ctx["card_note"]
     rng = np.random.default_rng(ctx["seed"] + 6)
     chars = convert.packed_words(smt.PackedSeqVec.random(N_CROSSOVER, rng), dev)
     threshold = fused.LARGE_W_MIN
     print(f"routes of minimizer_tiles at {N_CROSSOVER} bases (stored / large-w, ms; "
-          f"LARGE_W_MIN = {threshold}):")
+          f"LARGE_W_MIN = {threshold}), up to the largest w the stored route fits:")
     wins = {}
     try:
         for canonical in (True, False):
-            for w in CROSSOVER_W:
+            stored_max = max(w for w in range(1, 1 << 16)
+                             if fused._smem_bytes(22, w, canonical, pipeline.MODE_MINIMIZERS,
+                                                  False, False, "nt", 0) <= fused._SMEM_MAX)
+            for w in sorted({w for w in CROSSOVER_W if w <= stored_max} | {stored_max}):
                 k = 21 if (w % 2 or not canonical) else 22
                 (kind, can, rot), tables = convert.hasher_tensors(smt.NtHasher(k, canonical),
                                                                   dev)
@@ -1184,7 +1342,7 @@ def _crossover(ctx):
                                    ("stored", 1 << 16)):
                     fused.LARGE_W_MIN = thr
                     outs[route] = fused.fused_sketch(*args)
-                    reps = 1 if route == "stored" and w >= 1024 else 3
+                    reps = 1 if route == "stored" and w >= 1 << 14 else 3
                     times.setdefault(route, []).append(
                         _median_ms(lambda: fused.minimizer_tiles(*args), 3, reps, 1)[0])
                 if not torch.equal(outs["stored"], outs["large"]):
@@ -1195,9 +1353,11 @@ def _crossover(ctx):
                       f"{st:.4f}, large-w {lg:.4f} ({st / lg:.2f}x); bit-equal; {note}")
     finally:
         fused.LARGE_W_MIN = threshold
-    first = max(next((w for w, win in v if win), 1 << 16) for v in wins.values())
-    print(f"  the large-w route wins in both strands from w = {first} (LARGE_W_MIN = "
-          f"{threshold})")
+    # the first w from which the large-w route wins at every larger w measured
+    first = max(next((w for i, (w, _) in enumerate(v) if all(win for _, win in v[i:])), 1 << 16)
+                for v in wins.values())
+    print(f"  the large-w route wins in both strands at every w from {first} on "
+          f"(LARGE_W_MIN = {threshold})")
 
 
 def main() -> int:
@@ -1348,13 +1508,7 @@ def main() -> int:
               _bound(in_bytes + 4 * (nplanes * kept + ntiles),
                      nw * _tiles_ops_per_window(K, canonical, kind, text_in, bool(amb))))
 
-        offsets = fused.tile_offsets(counts)
-        err = _max_abs_err(offsets, pipeline.tile_offsets_plain(counts))
-        entry("tile_offsets", 841, err,
-              _median_ms(lambda: fused.tile_offsets(counts), 5, 10, 2),
-              _median_ms(lambda: pipeline.tile_offsets_plain(counts), 5, 10, 2),
-              _bound(4 * ntiles + 4 * (ntiles + 1), 2 * ntiles),
-              _median_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32), 5, 10, 2))
+        offsets = _scan_timing(rec, counts, card_note)
 
         total = int(offsets[-1])
         got = fused.tile_append(scratch, counts, offsets, total)
@@ -1446,11 +1600,15 @@ def main() -> int:
     _genome(ctx)
     _read_batches(ctx)
 
-    # -- large w, short sequences, sharded and multi-process --------------
-    for phase in (_crossover, _large_w, _short_sequences, _sharded):
+    # -- the stored route, large w, short sequences, sharded --------------
+    ctx["chars_dna"] = convert.packed_words(seq, dev)
+    for phase in (_stored_sweep, _crossover, _large_w, _short_sequences, _sharded):
         t = time.perf_counter()
         phase(ctx)
         print(f"  ({phase.__name__[1:]}: {time.perf_counter() - t:.1f} s)")
+        if phase is _stored_sweep:
+            del ctx["chars_dna"]
+            torch.cuda.empty_cache()
 
     rec.finish()
 

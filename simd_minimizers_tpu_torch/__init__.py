@@ -29,10 +29,19 @@ from .api import (
     closed_syncmers,
     minimizer_positions,
     minimizers,
+    one_minimizer,
     open_syncmers,
 )
 from .hashers import AntiLexHasher, KmerHasher, MulHasher, NtHasher
-from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, PackedSeqVec
+from .seq.packed import (
+    AsciiSeq,
+    AsciiSeqVec,
+    GenericSeq,
+    PackedNSeqVec,
+    PackedSeq,
+    PackedSeqVec,
+    as_seq,
+)
 
 __all__ = [
     "Builder",
@@ -45,6 +54,7 @@ __all__ = [
     "canonical_open_syncmers",
     "minimizer_positions",
     "canonical_minimizer_positions",
+    "one_minimizer",
     "KmerHasher",
     "NtHasher",
     "MulHasher",
@@ -53,5 +63,7 @@ __all__ = [
     "PackedSeqVec",
     "PackedNSeqVec",
     "AsciiSeq",
+    "AsciiSeqVec",
     "GenericSeq",
+    "as_seq",
 ]

@@ -15,7 +15,7 @@ its ambiguity mask, as a 1-bit plane, to `device`, runs the port's backend
 (the Hopper kernel on a CUDA device, its plain version on the CPU) and
 brings the result back through pinned host memory. `run_batch` sketches
 many reads in one launch per length bucket (`ops/batch.py`). `run_scalar`
-is the NumPy oracle (`ops/oracle.py`).
+and `one_minimizer` are the NumPy oracle (`ops/oracle.py`).
 """
 
 from __future__ import annotations
@@ -232,6 +232,12 @@ def open_syncmers(k: int, w: int) -> Builder:
 
 def canonical_open_syncmers(k: int, w: int) -> Builder:
     return Builder(k, w, canonical=True, syncmer=_SYNCMER_OPEN)
+
+
+def one_minimizer(window_seq, hasher: KmerHasher) -> int:
+    """Minimizer position of a single window (the crate's
+    src/minimizers.rs:22-28): the NumPy oracle on the host, no card."""
+    return oracle.one_minimizer(as_seq(window_seq).codes(), hasher)
 
 
 def minimizer_positions(seq, k: int, w: int, device: torch.device | str = "cuda") -> np.ndarray:

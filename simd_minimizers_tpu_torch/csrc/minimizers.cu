@@ -39,7 +39,8 @@
 //      shared memory behind the tile's other data); antilex (`antilex`) reads
 //      no table and packs the low two bits of the first min(k, 16) chars with
 //      a rolling shift on each strand.
-//   2. tile_offsets: one block takes the exclusive scan of the counts and
+//   2. tile_offsets: one block per SCAN_BLOCK counts takes the exclusive
+//      scan of the counts in a single pass (a decoupled look-back) and
 //      writes the total behind them (the running total the TPU kept in SMEM).
 //   3. tile_append: copies each tile's run of each plane to its global offset.
 // Each has its own C entry point (and Python wrapper, ops/fused.py); the
@@ -51,36 +52,72 @@
 // instance to the build. The instances do not add up in build time: nvcc
 // optimises them in parallel (--split-compile, ops/_build.py).
 //
-// What bounds it on the H100: it reads 0.25 B/char of 2-bit input or 1
-// B/char of code bytes or text (plus 0.125 B/char of ambiguity bits) and
-// writes about 4 B per kept value twice (scratch, then output) plus 4 B
-// reread, so at the density 2/(w+1) of random input it moves under 3 B/char
-// per plane: far below the card's 3.35 TB/s. The work is integer ALU: per
-// k-mer two table lookups in shared memory and a few funnel shifts (rolling
-// hash, both strands; antilex: two shifts and an or per strand), per window
-// 2w unsigned mins and a sliding T/G count. The function itself needs about
-// 29 operations per window canonical and 14 forward at k=21 (chip_smoke.py's
-// bound, with an O(1) sliding minimum); the w mins per arm are the main
-// excess over it (ROADMAP A3, large w). The design keeps every
-// intermediate in shared memory or registers, makes the hash O(1) per k-mer
-// instead of O(k), and launches enough blocks (one per 4096 windows) to
-// fill all SMs. An ambiguity plane costs a clean tile one block vote
-// (__syncthreads_or, the counterpart of the TPU's per-block amb_any flags);
-// only a tile with an ambiguous char in its span counts them per window, by
-// popc for the first window of each thread and a sliding count after it.
-// Unlike the TPU's text path, whose halo stops at l - 1 <= 1024, text takes
-// any w the shared memory admits (ops/fused.fused_supported), as DNA does.
+// What bounds minimizer_tiles on the H100: it reads 0.25 B/char of 2-bit
+// input or 1 B/char of code bytes or text (plus 0.125 B/char of ambiguity
+// bits) and writes about 4 B per kept value twice (scratch, then output)
+// plus 4 B reread, so at the density 2/(w+1) of random input it moves under
+// 3 B/char per plane: far below the card's 3.35 TB/s. The work is integer
+// ALU and shared memory: per k-mer a table lookup of the char pair (2-bit
+// input; two lookups and funnel shifts for text) and a funnel shift
+// (rolling hash, both strands; antilex: two shifts and an or per strand),
+// per window a sliding minimum per arm and a sliding T/G count. The function
+// itself needs about 29 operations per window canonical and 14 forward at
+// k=21 (chip_smoke.py's bound, with an O(1) sliding minimum). The design
+// keeps every intermediate in shared memory or registers, makes the hash
+// O(1) per k-mer instead of O(k), and launches enough blocks (one per 4096
+// windows) to fill all SMs. An ambiguity plane costs a clean tile one block
+// vote (__syncthreads_or, the counterpart of the TPU's per-block amb_any
+// flags); only a tile with an ambiguous char in its span counts them per
+// window, by popc for the first window of each thread and a sliding count
+// after it, from 16 bits of the plane in a register. Unlike the TPU's text
+// path, whose halo stops at l - 1 <= 1024, text takes any w the shared
+// memory admits (ops/fused.fused_supported), as DNA does.
 //
 // Two routes for the sliding minimum, chosen per launch by the block-uniform
-// `sub_tile` (ops/fused.LARGE_W_MIN): the stored route keeps every key of the
-// tile's TILE + w k-mers in shared memory and takes w mins per window and
-// arm; the large-w route (sub_tile T, a power of two <= min(w, TILE)) keeps
-// the chars, two blocks of T keys per arm and one least key per window, so
-// its shared memory no longer grows with w in keys: every w with TILE + w <=
-// 2^16 (the 16-bit column) fits. It hashes w + T k-mers per T windows and
-// takes three mins per window (a suffix of block 0, the core's least key, a
-// prefix of block 1), and counts the first window of each thread by a block
-// scan instead of O(l) per thread.
+// `sub_tile` (ops/fused.sub_tile):
+// - The stored route (sub_tile 0) keeps the keys of the tile's TILE + w
+//   k-mers in shared memory. Thread t owns the 16 contiguous windows from
+//   16t, so with keys at their column, the 32 lanes of a warp that read
+//   column 16t + c for one c hit two of the 32 banks: every key load was a
+//   16-way bank conflict, and with w of them per window and arm it was the
+//   kernel's cost (3.80 / 1.38 ms per 1e8 chars canonical / forward at
+//   w = 11 before; PERF.md). Keys now sit at kidx(j) = j ^ ((j >> 5) & 15),
+//   a permutation within each 32-word row: the 16-column stride of the
+//   window reads and the consecutive columns of the passes below both fall
+//   in distinct banks (the hash stores, at the run stride TILE / THREADS + 1,
+//   take about two wavefronts). Then `passes` doubling passes turn column
+//   j's key into the least key of columns [j, j + p), p = 2^passes: the
+//   first two in registers as the hash runs produce the keys (a run keeps
+//   its last four), the others one column per thread at a time (read both
+//   into registers, barrier, write); a window takes ceil(w / p) loads per
+//   arm: m[v + 1], m[v + 1 + p], ..., m[v + w - p + 1], overlapping where
+//   p does not divide w (min is idempotent, and the column in the low 16
+//   bits already breaks ties). So
+//   a window costs O(log w) accesses instead of w, each conflict-free;
+//   ops/fused.min_passes picks the count from the card's measurements. The
+//   strand count reads 16 T/G bits a thread from a bit plane built from the
+//   chars (bit 1 of each) instead of 32 byte loads at a 16-byte stride (a
+//   4-way conflict), and the first window's count is a popc over it.
+// - The large-w route (sub_tile T, a power of two <= min(w, TILE)) keeps the
+//   chars, two blocks of T keys per arm and one least key per window, so its
+//   shared memory no longer grows with w in keys: every w with TILE + w <=
+//   2^16 (the 16-bit column) fits. It hashes w + T k-mers per T windows and
+//   takes three mins per window (a suffix of block 0, the core's least key,
+//   a prefix of block 1), and counts the first window of each thread by a
+//   block scan instead of O(l) per thread.
+//
+// tile_offsets is bound by latency, not by bytes: at 1e8 chars it scans
+// 24,415 counts (98 KB, 0.06 us of the card's bandwidth both ways), and one
+// block of threads keeps too few loads in flight to hide their latency. So
+// the scan is one pass over many blocks: each block loads 1024 counts as
+// int4 (4 a thread, coalesced), sums them with a warp-shuffle block scan,
+// publishes its sum and looks back over its predecessors' published sums
+// and prefixes, 32 at a time with one warp (the decoupled look-back of a
+// single-pass scan), then writes its offsets as int4. The look-back's
+// status words carry the launch's epoch, so a launch needs neither a memset
+// nor a clearing pass: each stream keeps its own words and epoch counter
+// (ops/fused.tile_offsets), and a CUDA-graph capture gets words of its own,
+// zeroed in the graph at each replay.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,7 +127,12 @@ namespace {
 constexpr int TILE = 4096;               // windows per block
 constexpr int THREADS = 256;             // threads per block
 constexpr int WPT = TILE / THREADS;      // windows per thread
-constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_THREADS = 256;
+constexpr int SCAN_VECS = 1;                              // int4 loads per thread
+constexpr int SCAN_BLOCK = 4 * SCAN_VECS * SCAN_THREADS;  // counts per block of tile_offsets
+constexpr unsigned long long SCAN_AGG = 1ull << 32;  // status: the block's sum in the low word
+constexpr unsigned long long SCAN_PRE = 2ull << 32;  // status: counts up to the block's end
+constexpr int PASS_COLS = 17;  // columns a thread holds per pass group: 17 * THREADS > TILE + 255
 constexpr uint32_t INVALID = 0xFFFFFFFFu;
 constexpr uint32_t SKIPPED = 0xFFFFFFFEu;
 constexpr uint32_t TOP16 = 0xFFFF0000u;
@@ -106,23 +148,30 @@ constexpr int SYNCMERS = 2;    // the window index gw where sel - gw is sync_lo 
 // [t0 - 4, t0 + TILE + l - 1) of the tile starting at window t0, rounded up
 // to whole packed bytes; then the key space, which also stages the
 // compacted planes (TILE words each); with AMB, ambiguity bits cover chars
-// t0 - 32 .. in whole 32-bit words; the fold's forward and complement values
-// of each char follow (2 * 4 words for 2-bit codes, 2 * 256 for text bytes,
-// none for antilex).
+// t0 - 32 .. in whole 32-bit words; canonical on the stored route, the T/G
+// bit (bit 1) of each char of the tile, bit b of word i for char 32 i + b
+// of the chars above; the fold's forward and complement values of each char
+// follow (2 * 4 words for 2-bit codes, 2 * 256 for text bytes, none for
+// antilex).
 // The key space of the stored route (sub_tile 0): the keys of k-mers
-// t0 - 1 .. t0 + TILE + w - 2 (columns 0 .. TILE + w - 1), per arm. Of the
-// large-w route (sub_tile T, a power of two <= w and <= TILE): per arm the
-// minimum key of each of the TILE + 1 windows, then two blocks of T keys.
+// t0 - 1 .. t0 + TILE + w - 2 (columns 0 .. TILE + w - 1), per arm, at
+// kidx(column) in an array of whole 32-word rows. Of the large-w route
+// (sub_tile T, a power of two <= w and <= TILE): per arm the minimum key of
+// each of the TILE + 1 windows, then two blocks of T keys.
 __host__ __device__ inline int tile_chars(int l) { return (TILE + l + 3 + 3) / 4 * 4; }
 __host__ __device__ inline int key_offset(int l) { return (tile_chars(l) + 15) / 16 * 16; }
 __host__ __device__ inline int tile_kmers(int w) { return TILE + w; }
+__host__ __device__ inline int stored_arm_words(int w) { return (tile_kmers(w) + 31) / 32 * 32; }
 __host__ __device__ inline int key_words(int w, bool canonical, int mode, int sub_tile) {
-  const int per_arm = sub_tile ? TILE + 1 + 2 * sub_tile : tile_kmers(w);
+  const int per_arm = sub_tile ? TILE + 1 + 2 * sub_tile : stored_arm_words(w);
   const int keys = (canonical ? 2 : 1) * per_arm;
   const int staged = (mode == SUPERKMERS ? 2 : 1) * TILE;
   return keys > staged ? keys : staged;
 }
 __host__ __device__ inline int amb_words(int l) { return (TILE + l + 62) / 32; }
+__host__ __device__ inline int tg_words(int l, bool canonical, int sub_tile) {
+  return canonical && !sub_tile ? (tile_chars(l) + 31) / 32 : 0;
+}
 __host__ __device__ inline int table_words(bool text, bool antilex) {
   return antilex ? 0 : 2 * (text ? TEXT_CHARS : CODES);
 }
@@ -131,7 +180,35 @@ inline size_t tile_smem_bytes(int k, int w, bool canonical, int mode, bool amb, 
                               bool antilex, int sub_tile) {
   const int l = k + w - 1;
   return (size_t)key_offset(l) + 4 * (size_t)key_words(w, canonical, mode, sub_tile) +
-         (amb ? 4 * (size_t)amb_words(l) : 0) + 4 * (size_t)table_words(text, antilex);
+         (amb ? 4 * (size_t)amb_words(l) : 0) + 4 * (size_t)tg_words(l, canonical, sub_tile) +
+         4 * (size_t)table_words(text, antilex);
+}
+
+// The stored route's index of column j: its low four bits XOR its 32-word
+// row, so that 32 lanes reading columns 16 t + c (one c) or 32 consecutive
+// columns from a multiple of 32 hit 32 distinct banks.
+__device__ __forceinline__ int kidx(int j) { return j ^ ((j >> 5) & 15); }
+
+// The set bits of plane word i within bits [a, e], and of all of [a, e].
+__device__ __forceinline__ int word_bits(const uint32_t* plane, int a, int e, int i) {
+  uint32_t m = plane[i];
+  if (i == a >> 5) m &= 0xFFFFFFFFu << (a & 31);
+  if (i == e >> 5) m &= 0xFFFFFFFFu >> (31 - (e & 31));
+  return __popc(m);
+}
+__device__ __forceinline__ int count_bits(const uint32_t* plane, int a, int e) {
+  int cnt = 0;
+  for (int i = a >> 5; i <= e >> 5; ++i) cnt += word_bits(plane, a, e, i);
+  return cnt;
+}
+
+// Bits b .. b + 15 of a plane, bit q for bit b + q; reads no word past the
+// one that holds bit b + 15.
+__device__ __forceinline__ uint32_t bits16(const uint32_t* plane, int b) {
+  const int i = b >> 5, s = b & 31;
+  uint32_t x = plane[i] >> s;
+  if (s > 16) x |= plane[i + 1] << (32 - s);
+  return x & 0xFFFFu;
 }
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
@@ -215,7 +292,7 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
                 int bytes_in, int text, int antilex, const long long* __restrict__ table,
                 int rot, const uint8_t* __restrict__ amb, long long amb_nbytes, int sync_lo,
                 int sync_hi, uint32_t offset_arg, const int* __restrict__ meta, int sub_tile,
-                int* __restrict__ scratch, int* __restrict__ counts) {
+                int passes, int* __restrict__ scratch, int* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[THREADS / 32];
 
@@ -227,19 +304,37 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
   const int l = k + w - 1;
   const long long nw = (long long)n - l + 1;
   const long long t0 = (long long)blockIdx.x * TILE;  // first window of the tile
+  // tile-local bounds, so that the per-column and per-window tests stay in
+  // 32 bits: column j holds a k-mer (k-mer t0 - 1 + j in [0, n - k]) iff
+  // j_lo <= j <= j_hi; window v (window t0 + v in [0, nw)) iff v_lo <= v < v_hi
+  const int j_lo = t0 == 0 ? 1 : 0;
+  const int j_hi = (int)max(-1LL, min((long long)TILE + w, (long long)n - k + 1 - t0));
+  const int v_lo = t0 == 0 ? 0 : -1;
+  const int v_hi = (int)max(-1LL, min((long long)TILE, nw - t0));
   const int nchars = tile_chars(l);
   const int nk = tile_kmers(w);
   const int T = sub_tile;  // 0: the stored route; else the large-w route's block of columns
   uint8_t* s_c = smem;                                 // s_c[s] = code of char t0 - 4 + s
-  // stored route: s_kl[j] is the key of k-mer t0 - 1 + j (column j); large-w
-  // route: s_kl[a] is the least key of window a - 1 (columns a .. a + w - 1)
+  // stored route: s_kl[kidx(j)] is the key of k-mer t0 - 1 + j (column j);
+  // large-w route: s_kl[a] is the least key of window a - 1 (columns a ..
+  // a + w - 1)
   uint32_t* s_kl = reinterpret_cast<uint32_t*>(smem + key_offset(l));
-  uint32_t* s_kr = s_kl + (T ? TILE + 1 : nk);
+  uint32_t* s_kr = s_kl + (T ? TILE + 1 : stored_arm_words(w));
   uint32_t* s_amb = s_kl + key_words(w, CANONICAL, MODE, T);  // bit b: char t0 - 32 + b
+  uint32_t* s_tg = s_amb + (AMB ? amb_words(l) : 0);  // bit s: bit 1 of s_c[s] (stored route)
   // the fold's per-char values: forward tF[c], complement tR[c]
-  uint32_t* tF = s_amb + (AMB ? amb_words(l) : 0);
+  uint32_t* tF = s_tg + tg_words(l, CANONICAL, T);
   uint32_t* tR = tF + (text ? TEXT_CHARS : CODES);
   for (int i = tid; i < table_words(text, antilex); i += THREADS) tF[i] = (uint32_t)table[i];
+  // 2-bit input: the rolling step's value of each (outgoing, incoming)
+  // char pair, both rotated, per strand (`hash_cols`)
+  __shared__ uint32_t s_roll[2][CODES * CODES];
+  if (!text && !antilex && tid < CODES * CODES) {
+    const int a = tid / CODES, b = tid % CODES;
+    s_roll[0][tid] = rotl((uint32_t)table[a], rot) ^ rotl((uint32_t)table[b], k + rot);
+    s_roll[1][tid] = rotl((uint32_t)table[CODES + a], k - 1 + rot) ^
+                     rotl((uint32_t)table[CODES + b], rot - 1);
+  }
 
   // B1: one char per shared byte. 2-bit input: decode whole packed bytes
   // (base i at bits 2 * (i % 4)), chars outside [0, nbytes * 4) reading as
@@ -330,35 +425,100 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
         h ^= rotl(tF[c], i + rot);
         if (CANONICAL) r ^= rotl(tR[c], k - 1 - i + rot);
       }
+      // the rolling step XORs in both chars' rotated values: for 2-bit
+      // chars one lookup of s_roll at 4 c_out + c_in, for text two of each
+      // table
+      const bool pairs = !text;
       for (int j = j0;;) {
         put(j, CANONICAL ? h ^ r : h);
         if (++j >= j1) break;
         const int c_out = s_c[j + 2], c_in = s_c[j + 2 + k];
-        h = rotr(h ^ rotl(tF[c_out], rot) ^ rotl(tF[c_in], k + rot), 1);
-        if (CANONICAL)
-          r = rotl(r ^ rotl(tR[c_out], k - 1 + rot) ^ rotl(tR[c_in], rot - 1), 1);
+        if (pairs) {
+          h = rotr(h ^ s_roll[0][4 * c_out + c_in], 1);
+          if (CANONICAL) r = rotl(r ^ s_roll[1][4 * c_out + c_in], 1);
+        } else {
+          h = rotr(h ^ rotl(tF[c_out], rot) ^ rotl(tF[c_in], k + rot), 1);
+          if (CANONICAL)
+            r = rotl(r ^ rotl(tR[c_out], k - 1 + rot) ^ rotl(tR[c_in], rot - 1), 1);
+        }
       }
     }
   };
   auto key_l = [&](int j, uint32_t hash) -> uint32_t {
-    const long long kp = t0 - 1 + j;
-    return kp >= 0 && kp <= (long long)n - k ? (hash & TOP16) | (uint32_t)j : INVALID;
+    return j >= j_lo && j <= j_hi ? (hash & TOP16) | (uint32_t)j : INVALID;
   };
   auto key_r = [&](int j, uint32_t hash) -> uint32_t {
-    const long long kp = t0 - 1 + j;
-    return kp >= 0 && kp <= (long long)n - k ? (hash & TOP16) | (0xFFFFu - (uint32_t)j)
-                                             : INVALID;
+    return j >= j_lo && j <= j_hi ? (hash & TOP16) | (0xFFFFu - (uint32_t)j) : INVALID;
   };
 
   if (!T) {
-    // stored route: the keys of all TILE + w columns
+    // stored route: the keys of all TILE + w columns, the first rp =
+    // min(passes, 2) doubling passes taken in registers as they are hashed:
+    // a run keeps its last four keys (k*0 of column j, k*1 of j - 1, ...)
+    // and stores the least of the pr = 2^rp ending at j for column
+    // j - pr + 1, hashing pr - 1 columns past its own so that its last
+    // columns get theirs. Then (canonical) the T/G plane: word i from the
+    // 32 chars of s_c words 8i .. 8i + 7, the bit 1 of each byte gathered by
+    // a multiply (bits 0, 8, 16, 24 of y land on 24 .. 27, the cross terms
+    // below 20).
     const int per = (nk + THREADS - 1) / THREADS;
     const int j0 = tid * per;
-    hash_cols(j0, min(j0 + per, nk), [&](int j, uint32_t hash) {
-      s_kl[j] = key_l(j, hash);
-      if (CANONICAL) s_kr[j] = key_r(j, hash);
+    const int rp = min(passes, 2), pr = 1 << rp;
+    uint32_t kl0 = INVALID, kl1 = INVALID, kl2 = INVALID, kl3 = INVALID;
+    uint32_t kr0 = INVALID, kr1 = INVALID, kr2 = INVALID, kr3 = INVALID;
+    hash_cols(j0, min(j0 + per + pr - 1, nk), [&](int j, uint32_t hash) {
+      kl3 = kl2, kl2 = kl1, kl1 = kl0, kl0 = key_l(j, hash);
+      if (CANONICAL) kr3 = kr2, kr2 = kr1, kr1 = kr0, kr0 = key_r(j, hash);
+      const int c = j - pr + 1;
+      if (c < j0) return;
+      s_kl[kidx(c)] = rp == 0 ? kl0 : rp == 1 ? min(kl0, kl1) : min(min(kl0, kl1), min(kl2, kl3));
+      if (CANONICAL)
+        s_kr[kidx(c)] =
+            rp == 0 ? kr0 : rp == 1 ? min(kr0, kr1) : min(min(kr0, kr1), min(kr2, kr3));
     });
+    if (CANONICAL) {
+      const uint32_t* c4 = reinterpret_cast<const uint32_t*>(s_c);
+      for (int i = tid; i < tg_words(l, true, 0); i += THREADS) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const uint32_t y = 8 * i + q < nchars / 4 ? (c4[8 * i + q] >> 1) & 0x01010101u : 0u;
+          x |= (y * 0x01020408u) >> 24 << (4 * q);
+        }
+        s_tg[i] = x;
+      }
+    }
     __syncthreads();
+    // the other doubling passes: after pass i, column j holds the least key
+    // of columns [j, j + 2^(i+1)) for every j <= nk - 2^(i+1) (the columns
+    // past it, which no window reads, hold anything). Each group of PASS_COLS *
+    // THREADS columns reads its pairs into registers, then writes after a
+    // barrier; a later group neither reads nor writes the columns that an
+    // earlier one wrote, so one barrier per group and one per pass suffice.
+    for (int i = rp; i < passes; ++i) {
+      const int d = 1 << i;
+      for (int g0 = 0; g0 + d < nk; g0 += PASS_COLS * THREADS) {
+        uint32_t al[PASS_COLS], ar[PASS_COLS];
+#pragma unroll
+        for (int r = 0; r < PASS_COLS; ++r) {
+          const int j = g0 + r * THREADS + tid;
+          if (j + d < nk) {
+            al[r] = min(s_kl[kidx(j)], s_kl[kidx(j + d)]);
+            if (CANONICAL) ar[r] = min(s_kr[kidx(j)], s_kr[kidx(j + d)]);
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < PASS_COLS; ++r) {
+          const int j = g0 + r * THREADS + tid;
+          if (j + d < nk) {
+            s_kl[kidx(j)] = al[r];
+            if (CANONICAL) s_kr[kidx(j)] = ar[r];
+          }
+        }
+      }
+      __syncthreads();
+    }
   } else {
     // large-w route (Gil-Werman / van Herk with a core): the windows a - 1
     // for a in [c0, c0 + T] all cover the core columns [c0 + T, c0 + w).
@@ -412,18 +572,23 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
   // Window v covers k-mers j in [v + 1, v + w], chars s in [v + 4, v + 4 + l)
   // and ambiguity bits [v + 32, v + 32 + l).
   const uint32_t pos0 = (uint32_t)(t0 - 1);  // position of k-mer column 0 (wraps for tile 0)
+  const int p = 1 << passes;                 // stored route: columns per pass-reduced key
   auto window_sel = [&](int v, int cnt, bool skipped) -> uint32_t {
-    const long long wi = t0 + v;
-    if (wi < 0 || wi >= nw) return INVALID;  // validity wins over SKIPPED, as on the TPU
+    if (v < v_lo || v >= v_hi) return INVALID;  // validity wins over SKIPPED, as on the TPU
     if (AMB && skipped) return SKIPPED;
-    uint32_t ml = INVALID, mr = INVALID;
+    uint32_t ml, mr = INVALID;
     if (T) {
       ml = s_kl[v + 1];
       if (CANONICAL) mr = s_kr[v + 1];
     } else {
-      for (int j = v + 1; j <= v + w; ++j) {
-        ml = min(ml, s_kl[j]);
-        if (CANONICAL) mr = min(mr, s_kr[j]);
+      // columns [v + 1, v + w] as blocks of p from v + 1, the last one ending
+      // at v + w (it overlaps the one before where p does not divide w)
+      const int last = v + w - p + 1;
+      ml = s_kl[kidx(last)];
+      if (CANONICAL) mr = s_kr[kidx(last)];
+      for (int j = v + 1; j < last; j += p) {
+        ml = min(ml, s_kl[kidx(j)]);
+        if (CANONICAL) mr = min(mr, s_kr[kidx(j)]);
       }
     }
     const uint32_t lpos = pos0 + (ml & 0xFFFFu);
@@ -447,43 +612,46 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
 
   const int vp = tid * WPT - 1;
   // B5: bit q of `skip` is set where window vp + q holds an ambiguous base.
+  // Window vp + q (q = 1 .. WPT) gains bit vp + 31 + l + q of the plane and
+  // loses bit vp + 31 + q: bit q - 1 of `in` and of `out`.
   unsigned skip = 0;
   if (AMB && dirty) {
-    auto bits = [&](int a, int e, int i) -> int {  // set bits of word i in [a, e]
-      uint32_t m = s_amb[i];
-      if (i == a >> 5) m &= 0xFFFFFFFFu << (a & 31);
-      if (i == e >> 5) m &= 0xFFFFFFFFu >> (31 - (e & 31));
-      return __popc(m);
-    };
-    auto bit = [&](int b) -> int { return (s_amb[b >> 5] >> (b & 31)) & 1; };
-    int cnt = 0;
+    const uint32_t in = bits16(s_amb, vp + 32 + l), out = bits16(s_amb, vp + 32);
+    int cnt;
     if (T) {
-      int part = 0, step = 0;
-      for (int i = (31 >> 5) + tid; i <= (30 + l) >> 5; i += THREADS) part += bits(31, 30 + l, i);
-      for (int q = 1; q <= WPT; ++q) step += bit(vp + q + 31 + l) - bit(vp + q + 31);
-      cnt = first_count(part, step);
+      int part = 0;  // window -1's bits [31, 30 + l], a word a thread
+      for (int i = (31 >> 5) + tid; i <= (30 + l) >> 5; i += THREADS)
+        part += word_bits(s_amb, 31, 30 + l, i);
+      cnt = first_count(part, __popc(in) - __popc(out));
     } else {
-      const int a = vp + 32, e = vp + 31 + l;  // first and last bit of window vp
-      for (int i = a >> 5; i <= e >> 5; ++i) cnt += bits(a, e, i);
+      cnt = count_bits(s_amb, vp + 32, vp + 31 + l);  // the bits of window vp
     }
     skip = cnt > 0;
 #pragma unroll
     for (int q = 1; q <= WPT; ++q) {
-      cnt += bit(vp + q + 31 + l) - bit(vp + q + 31);
+      cnt += (int)((in >> (q - 1)) & 1u) - (int)((out >> (q - 1)) & 1u);
       skip |= (unsigned)(cnt > 0) << q;
     }
   }
 
+  // the strand count: window vp + 1 + q gains char vp + 4 + l + q of s_c and
+  // loses char vp + 4 + q, bit q of tg_in and of tg_out
   int cnt = 0;
+  uint32_t tg_in = 0, tg_out = 0;
   if (CANONICAL) {
-    auto tg = [&](int s) -> int { return (s_c[s] >> 1) & 1; };
     if (T) {
-      int part = 0, step = 0;
+      auto tg = [&](int s) -> int { return (s_c[s] >> 1) & 1; };
+      int part = 0;
       for (int i = 3 + tid; i < 3 + l; i += THREADS) part += tg(i);
-      for (int q = 0; q < WPT; ++q) step += tg(vp + 4 + q + l) - tg(vp + 4 + q);
-      cnt = first_count(part, step);
+      for (int q = 0; q < WPT; ++q) {
+        tg_in |= (uint32_t)tg(vp + 4 + q + l) << q;
+        tg_out |= (uint32_t)tg(vp + 4 + q) << q;
+      }
+      cnt = first_count(part, __popc(tg_in) - __popc(tg_out));
     } else {
-      for (int i = 0; i < l; ++i) cnt += tg(vp + 4 + i);
+      tg_in = bits16(s_tg, vp + 4 + l);
+      tg_out = bits16(s_tg, vp + 4);
+      cnt = count_bits(s_tg, vp + 4, vp + 3 + l);
     }
   }
   uint32_t prev = MODE == SYNCMERS ? INVALID : window_sel(vp, cnt, skip & 1u);
@@ -492,15 +660,15 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
 #pragma unroll
   for (int q = 0; q < WPT; ++q) {
     const int v = vp + 1 + q;
-    if (CANONICAL) cnt += ((s_c[v + 3 + l] >> 1) & 1) - ((s_c[v + 3] >> 1) & 1);
+    if (CANONICAL) cnt += (int)((tg_in >> q) & 1u) - (int)((tg_out >> q) & 1u);
     sel[q] = window_sel(v, cnt, (skip >> (q + 1)) & 1u);
     if (MODE == SYNCMERS) {
       // SKIPPED and INVALID never equal gw + sync_*: gw + w - 1 < n < 2^31
       // (values are launch-local here; `offset` is added at emission)
       const uint32_t gw = (uint32_t)(t0 + v);
-      if (t0 + v < nw && (sel[q] == gw + sync_lo || sel[q] == gw + sync_hi)) keep |= 1u << q;
+      if (v < v_hi && (sel[q] == gw + sync_lo || sel[q] == gw + sync_hi)) keep |= 1u << q;
     } else {
-      if (t0 + v < nw && sel[q] != prev && (!AMB || sel[q] != SKIPPED)) keep |= 1u << q;
+      if (v < v_hi && sel[q] != prev && (!AMB || sel[q] != SKIPPED)) keep |= 1u << q;
       prev = sel[q];
     }
   }
@@ -533,20 +701,92 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
 }
 
 // B8, part 1: offsets[t] = sum of counts[0..t), offsets[ntiles] = total.
+// Block b scans counts [b SCAN_BLOCK, (b + 1) SCAN_BLOCK): thread x loads
+// its 4 as an int4 (scalar loads and stores where a pointer is not
+// 16-byte aligned or the counts end), the block sums them and publishes
+// its sum in status[b] (SCAN_AGG); then its first warp looks back over the
+// 32 blocks before it at once (a lane each), waits until each has
+// published, and adds the sums up to the nearest block that has published
+// its inclusive prefix (SCAN_PRE), 32 blocks further back if none has; it
+// publishes its own prefix and the block writes its offsets. A status word
+// counts only with this launch's `epoch` in its top 30 bits, so words that
+// earlier launches left need no clearing. Every block is resident at once
+// (at most 512 of 256 threads: ntiles <= 2^19), so the waits end.
 __global__ void __launch_bounds__(SCAN_THREADS)
-tile_offsets(const int* __restrict__ counts, int ntiles, int* __restrict__ offsets) {
+tile_offsets(const int* __restrict__ counts, int ntiles, int* __restrict__ offsets,
+             unsigned long long* status, int epoch) {
   __shared__ int s_warp[SCAN_THREADS / 32];
-  const int per = (ntiles + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int a = min((int)threadIdx.x * per, ntiles), b = min(a + per, ntiles);
-  int sum = 0;
-  for (int i = a; i < b; ++i) sum += counts[i];
-  int total;
-  int run = block_inclusive_scan<SCAN_THREADS>(sum, s_warp, &total) - sum;
-  for (int i = a; i < b; ++i) {
-    offsets[i] = run;
-    run += counts[i];
+  __shared__ int s_before;
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(counts) | reinterpret_cast<uintptr_t>(offsets)) & 15) == 0;
+  const int base = blockIdx.x * SCAN_BLOCK + 4 * SCAN_VECS * (int)threadIdx.x;
+  int4 x[SCAN_VECS];
+#pragma unroll
+  for (int u = 0; u < SCAN_VECS; ++u) {
+    const int i = base + 4 * u;
+    if (vec && i + 3 < ntiles) {
+      x[u] = __ldg(reinterpret_cast<const int4*>(counts + i));
+    } else {
+      x[u].x = i < ntiles ? counts[i] : 0;
+      x[u].y = i + 1 < ntiles ? counts[i + 1] : 0;
+      x[u].z = i + 2 < ntiles ? counts[i + 2] : 0;
+      x[u].w = i + 3 < ntiles ? counts[i + 3] : 0;
+    }
   }
-  if (threadIdx.x == 0) offsets[ntiles] = total;
+  int sum = 0;
+#pragma unroll
+  for (int u = 0; u < SCAN_VECS; ++u) sum += x[u].x + x[u].y + x[u].z + x[u].w;
+  int total;
+  const int incl = block_inclusive_scan<SCAN_THREADS>(sum, s_warp, &total);
+  if (threadIdx.x < 32) {
+    volatile unsigned long long* st = status;
+    const unsigned long long tag = (unsigned long long)epoch << 34;
+    const int lane = threadIdx.x, b = blockIdx.x;
+    int before = 0;
+    if (b == 0) {
+      if (lane == 0) st[0] = tag | SCAN_PRE | (uint32_t)total;
+    } else {
+      if (lane == 0) st[b] = tag | SCAN_AGG | (uint32_t)total;
+      for (int end = b - 1;; end -= 32) {
+        const int j = end - lane;
+        unsigned long long v = tag | SCAN_PRE;  // before block 0: a prefix of 0
+        if (j >= 0) {
+          do {
+            v = st[j];
+          } while ((v >> 34) != (unsigned long long)epoch);
+        }
+        const unsigned pre = __ballot_sync(0xFFFFFFFFu, (v & SCAN_PRE) != 0);
+        const int first = __ffs(pre) - 1;  // the nearest block with a prefix, or -1
+        int add = first < 0 || lane <= first ? (int)(uint32_t)v : 0;
+#pragma unroll
+        for (int d = 16; d; d >>= 1) add += __shfl_xor_sync(0xFFFFFFFFu, add, d);
+        before += add;
+        if (first >= 0) break;
+      }
+      if (lane == 0) st[b] = tag | SCAN_PRE | (uint32_t)(before + total);
+    }
+    if (lane == 0) {
+      s_before = before;
+      if (b == (int)gridDim.x - 1) offsets[ntiles] = before + total;
+    }
+  }
+  __syncthreads();
+  int run = s_before + incl - sum;
+#pragma unroll
+  for (int u = 0; u < SCAN_VECS; ++u) {
+    const int i = base + 4 * u;
+    const int4 o = make_int4(run, run + x[u].x, run + x[u].x + x[u].y,
+                             run + x[u].x + x[u].y + x[u].z);
+    run = o.w + x[u].w;
+    if (vec && i + 3 < ntiles) {
+      *reinterpret_cast<int4*>(offsets + i) = o;
+    } else {
+      if (i < ntiles) offsets[i] = o.x;
+      if (i + 1 < ntiles) offsets[i + 1] = o.y;
+      if (i + 2 < ntiles) offsets[i + 2] = o.z;
+      if (i + 3 < ntiles) offsets[i + 3] = o.w;
+    }
+  }
 }
 
 // B8, part 2: tile blockIdx.x's run of plane blockIdx.y to its global
@@ -564,7 +804,7 @@ tile_append(const int* __restrict__ scratch, const int* __restrict__ counts,
 
 using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, int, int, int,
                              const long long*, int, const uint8_t*, long long, int, int,
-                             uint32_t, const int*, int, int*, int*);
+                             uint32_t, const int*, int, int, int*, int*);
 
 // The instances built; null for a mode that has none.
 template <bool C>
@@ -590,6 +830,7 @@ TilesKernel tiles_instance(bool canonical, int mode, bool amb) {
 extern "C" {
 
 int smt_tile_windows() { return TILE; }
+int smt_scan_block() { return SCAN_BLOCK; }
 
 // Every function below works on card `device` and returns a CUDA error
 // code (0 = success); a launch returns cudaGetLastError() after it.
@@ -623,33 +864,42 @@ int smt_init(int device) {
 // null, or two ints on the card, n and the offset's bits, read in place of
 // n and offset (a CUDA-graph capture's launch, n at most the n given here).
 // sub_tile: 0 for the stored route, else the large-w route's block of
-// columns, a power of two <= min(w, TILE). scratch holds ntiles * TILE ints
-// per plane (two for super-k-mers).
+// columns, a power of two <= min(w, TILE). passes: the stored route's
+// doubling passes, 2^passes <= w (0 on the large-w route). scratch holds
+// ntiles * TILE ints per plane (two for super-k-mers).
 int smt_minimizer_tiles(int device, const void* words, long long nbytes, int n, int k, int w,
                         int canonical, int mode, int bytes_in, int text, int antilex,
                         const void* table, int rot, const void* amb, long long amb_nbytes,
                         int sync_lo, int sync_hi, unsigned int offset, const void* meta,
-                        int sub_tile, void* scratch, void* counts, int ntiles, void* stream) {
+                        int sub_tile, int passes, void* scratch, void* counts, int ntiles,
+                        void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const TilesKernel kern = tiles_instance(canonical != 0, mode, amb != nullptr);
   if (kern == nullptr || (table == nullptr && !antilex) || (text && !bytes_in) ||
-      sub_tile < 0 || sub_tile > TILE || (sub_tile & (sub_tile - 1)) || sub_tile > w)
+      sub_tile < 0 || sub_tile > TILE || (sub_tile & (sub_tile - 1)) || sub_tile > w ||
+      passes < 0 || passes > 30 || (sub_tile ? passes != 0 : (1 << passes) > w))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(k, w, canonical != 0, mode, amb != nullptr, text != 0,
                                       antilex != 0, sub_tile);
   kern<<<ntiles, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)words, nbytes, n, k, w, bytes_in, text, antilex,
       (const long long*)table, rot, (const uint8_t*)amb, amb_nbytes, sync_lo, sync_hi,
-      (uint32_t)offset, (const int*)meta, sub_tile, (int*)scratch, (int*)counts);
+      (uint32_t)offset, (const int*)meta, sub_tile, passes, (int*)scratch, (int*)counts);
   return (int)cudaGetLastError();
 }
 
-int smt_tile_offsets(int device, const void* counts, int ntiles, void* offsets, void* stream) {
+// status: (ntiles + SCAN_BLOCK - 1) / SCAN_BLOCK words of 8 bytes that no
+// other launch uses at the same time, holding no word tagged with epoch
+// (1 .. 2^30 - 1): zero, or left by launches with other epochs.
+int smt_tile_offsets(int device, const void* counts, int ntiles, void* offsets, void* status,
+                     int epoch, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  tile_offsets<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>((const int*)counts, ntiles,
-                                                             (int*)offsets);
+  if (epoch < 1 || epoch >= (1 << 30)) return (int)cudaErrorInvalidValue;
+  const int blocks = (ntiles + SCAN_BLOCK - 1) / SCAN_BLOCK;
+  tile_offsets<<<blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)counts, ntiles, (int*)offsets, (unsigned long long*)status, epoch);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,11 @@ TPU's row- and byte-striped repacks have no counterpart here.
 
 `fused_sketch` is `_fused_launch` (`minimizer_tiles`, `tile_offsets`; no
 host sync) then `_fused_harvest` (the total, `tile_append`): three
-wrappers, one per kernel. `minimizer_tiles` takes its large-w route (O(1)
-mins per window) from w = LARGE_W_MIN on, so that every w with
-TILE + w <= 2^16 fits a block's shared memory; it and `tile_append` can
+wrappers, one per kernel. `minimizer_tiles` takes its stored route (every
+key of the tile, `min_passes(w)` doubling passes, O(log w) per window)
+below w = LARGE_W_MIN and its large-w route (O(1) mins per window) from
+there on, so that every w with TILE + w <= 2^16 fits a block's shared
+memory (`sub_tile`); it and `tile_append` can
 also read the length and the total on the card, for a CUDA-graph capture
 (ops/device_sketcher.py). On a CUDA tensor each launches its kernel or
 raises; on a CPU tensor each runs its plain version (`ops/pipeline.py`).
@@ -45,15 +47,23 @@ from ..utils.profiling import stage
 from . import _build, pipeline
 
 TILE = 4096  # windows per thread block; csrc/minimizers.cu TILE
+SCAN_BLOCK = 1024  # counts per block of tile_offsets; csrc/minimizers.cu SCAN_BLOCK
 SPAN_CHARS = 1 << 29  # chars per span of a long sequence or record (the JAX package's)
 # dynamic shared memory one block may use on Hopper: 227 KiB less the
-# kernel's static shared memory (the scan's warp sums, 32 B)
-_SMEM_MAX = 232448 - 32
+# kernel's static shared memory (the scan's warp sums, 32 B, and the 2-bit
+# fold's rolling values, 128 B)
+_SMEM_MAX = 232448 - 160
 _KEY_COLUMNS = 1 << 16  # the packed (top16 | column) key keeps 16 column bits
 # w from which minimizer_tiles takes its large-w route (csrc/minimizers.cu:
 # O(1) mins per window, keys of two blocks of columns in shared memory)
-# instead of storing every key of the tile and taking w mins per window
-LARGE_W_MIN = 64  # the H100's crossover (PERF.md, chip_smoke.py's route comparison)
+# instead of storing every key of the tile and reducing them in doubling
+# passes (O(log w) per window)
+LARGE_W_MIN = 8192  # the H100's crossover (PERF.md, chip_smoke.py's route comparison)
+# the stored route's window takes 2^PASS_SLACK to 2^(PASS_SLACK + 1) loads
+# per arm: its doubling passes stop PASS_SLACK short of 2^passes <= w; at
+# w = 11 two passes, which the hash runs take in registers, beat one and
+# three (PERF.md, chip_smoke.py's pass sweep)
+PASS_SLACK = 1
 
 # csrc/minimizers.cu MINIMIZERS, SUPERKMERS, SYNCMERS: the kernel's mode
 _KERNEL_MODE = {pipeline.MODE_MINIMIZERS: 0, pipeline.MODE_SUPERKMERS: 1,
@@ -82,30 +92,52 @@ MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 _ready_devices: set[int] = set()
 
 
-def sub_tile(w: int) -> int:
-    """The large-w route's block of columns for w (csrc/minimizers.cu
-    `sub_tile`): the largest power of two <= min(w, TILE); 0 below
-    LARGE_W_MIN, where the stored route runs."""
-    return 0 if w < LARGE_W_MIN else min(TILE, 1 << (w.bit_length() - 1))
+def min_passes(w: int) -> int:
+    """The stored route's doubling passes at w (csrc/minimizers.cu
+    `passes`): after them each key is the least of p = 2^passes columns,
+    and a window takes ceil(w / p) loads per arm."""
+    return max(0, w.bit_length() - 1 - PASS_SLACK)
+
+
+def _smem_bytes(k: int, w: int, canonical: bool, mode: str, ambiguous: bool, text: bool,
+                kind: str, t: int) -> int:
+    """Mirror of csrc/minimizers.cu tile_smem_bytes for sub_tile t: the
+    tile's chars, its keys (whose space also stages one TILE-word plane per
+    output plane): on the stored route (t = 0) every column's in whole
+    32-word rows, on the large-w route per arm a least key per window and
+    two blocks of t; with an ambiguity plane the tile's ambiguity bits in
+    32-bit words; canonical on the stored route the chars' T/G bits in
+    32-bit words; and the fold's forward and complement tables (none for
+    antilex)."""
+    l = k + w - 1
+    chars = (TILE + l + 6) // 4 * 4
+    per_arm = TILE + 1 + 2 * t if t else (TILE + w + 31) // 32 * 32
+    keys = max((2 if canonical else 1) * per_arm,
+               (2 if mode == pipeline.MODE_SUPERKMERS else 1) * TILE)
+    amb = (TILE + l + 62) // 32 * 4 if ambiguous else 0
+    tg = (chars + 31) // 32 * 4 if canonical and not t else 0
+    tables = 0 if kind == "antilex" else 2 * 4 * convert.TABLE_ENTRIES[text]
+    return (chars + 15) // 16 * 16 + 4 * keys + amb + tg + tables
+
+
+def sub_tile(k: int, w: int, canonical: bool = True, mode: str = pipeline.MODE_MINIMIZERS,
+             ambiguous: bool = False, text: bool = False, kind: str = "nt") -> int:
+    """The route of minimizer_tiles at this geometry (csrc/minimizers.cu
+    `sub_tile`): 0, the stored route, below LARGE_W_MIN where its layout
+    fits one block's shared memory; else the large-w route's block of
+    columns, the largest power of two <= min(w, TILE)."""
+    if w < LARGE_W_MIN and _smem_bytes(k, w, canonical, mode, ambiguous, text, kind,
+                                       0) <= _SMEM_MAX:
+        return 0
+    return min(TILE, 1 << (w.bit_length() - 1))
 
 
 def _tile_smem_bytes(k: int, w: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                      ambiguous: bool = False, text: bool = False, kind: str = "nt") -> int:
-    """Mirror of csrc/minimizers.cu tile_smem_bytes: the tile's chars, its
-    keys (whose space also stages one TILE-word plane per output plane):
-    every column's below LARGE_W_MIN, else per arm a least key per window
-    and two blocks of sub_tile(w); with an ambiguity plane the tile's
-    ambiguity bits in 32-bit words, and the fold's forward and complement
-    tables (none for antilex)."""
-    l = k + w - 1
-    chars = (TILE + l + 6) // 4 * 4
-    t = sub_tile(w)
-    per_arm = TILE + 1 + 2 * t if t else TILE + w
-    keys = max((2 if canonical else 1) * per_arm,
-               (2 if mode == pipeline.MODE_SUPERKMERS else 1) * TILE)
-    amb = (TILE + l + 62) // 32 * 4 if ambiguous else 0
-    tables = 0 if kind == "antilex" else 2 * 4 * convert.TABLE_ENTRIES[text]
-    return (chars + 15) // 16 * 16 + 4 * keys + amb + tables
+    """The dynamic shared memory of minimizer_tiles at this geometry, on the
+    route that `sub_tile` picks (`_smem_bytes`)."""
+    return _smem_bytes(k, w, canonical, mode, ambiguous, text, kind,
+                       sub_tile(k, w, canonical, mode, ambiguous, text, kind))
 
 
 def fused_supported(k: int, w: int, canonical: bool = True, mode: str = pipeline.MODE_MINIMIZERS,
@@ -128,8 +160,9 @@ def _library(device: torch.device):
     minimizer_tiles instance's shared-memory limit)."""
     lib = _build.library()
     if device.index not in _ready_devices:
-        if lib.smt_tile_windows() != TILE:
-            raise RuntimeError("csrc/minimizers.cu TILE disagrees with ops/fused.py TILE")
+        if lib.smt_tile_windows() != TILE or lib.smt_scan_block() != SCAN_BLOCK:
+            raise RuntimeError("csrc/minimizers.cu TILE or SCAN_BLOCK disagrees with "
+                               "ops/fused.py")
         _check(lib.smt_init(device.index), "smt_init")
         _ready_devices.add(device.index)
     return lib
@@ -232,35 +265,68 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
         return scratch, counts
     lib = _library(dev)
     lo, hi = pipeline.syncmer_offsets(mode, w)
+    t = sub_tile(k, w, canonical, mode, ambiguous is not None, text, kind)
     _check(lib.smt_minimizer_tiles(
         dev.index, chars.data_ptr(), chars.numel(), n, k, w, int(canonical), _KERNEL_MODE[mode],
         int(bytes_in), int(text), int(kind == "antilex"),
         None if tables is None else tables.data_ptr(), rot_offset,
         None if ambiguous is None else ambiguous.data_ptr(),
         0 if ambiguous is None else ambiguous.numel(), lo, hi, offset,
-        None if meta is None else meta.data_ptr(), sub_tile(w), scratch.data_ptr(),
-        counts.data_ptr(), ntiles, torch.cuda.current_stream(dev).cuda_stream),
+        None if meta is None else meta.data_ptr(), t, 0 if t else min_passes(w),
+        scratch.data_ptr(), counts.data_ptr(), ntiles,
+        torch.cuda.current_stream(dev).cuda_stream),
         "minimizer_tiles")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES[instance_name(canonical, mode, ambiguous is not None)] += 1
     return scratch, counts
 
 
+# tile_offsets' look-back status words per (card, stream), with the epoch of
+# the stream's last launch: a launch tags its words with the next epoch, so
+# the words that earlier launches on the stream (which ran before it) left
+# never count; at 2^30 - 1 launches the words are zeroed and the count
+# starts again
+_scan_status: dict[tuple[int, int], list] = {}
+_SCAN_WORDS = MAX_LAUNCH_CHARS // TILE // SCAN_BLOCK  # blocks of the largest scan
+_SCAN_EPOCHS = (1 << 30) - 1
+
+
+def _status_words(device: torch.device, stream: int, words: int) -> tuple[torch.Tensor, int]:
+    """Status words and an epoch for a tile_offsets launch on `stream`: the
+    stream's own words and next epoch, or inside a CUDA-graph capture words
+    of the graph's own, zeroed at every replay, with epoch 1 (a replay may
+    run beside the stream, and replays the epoch it was captured with)."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(words, dtype=torch.int64, device=device), 1
+    key = (device.index, stream)
+    have = _scan_status.get(key)
+    if have is None or have[1] == _SCAN_EPOCHS:
+        have = _scan_status[key] = [torch.zeros(_SCAN_WORDS, dtype=torch.int64, device=device),
+                                    0]
+    have[1] += 1
+    return have[0], have[1]
+
+
 def tile_offsets(counts: torch.Tensor) -> torch.Tensor:
     """Kernel 2: the exclusive scan of `counts` with the total behind it,
-    (ntiles + 1,) int32 (the running total the TPU kernel kept in SMEM)."""
+    (ntiles + 1,) int32 (the running total the TPU kernel kept in SMEM).
+    On the card a single-pass scan of one block per SCAN_BLOCK counts,
+    with its look-back's status words from `_status_words`."""
     _require_int32(counts)
     if _device_kind(counts) == "cpu":
         return pipeline.tile_offsets_plain(counts)
     ntiles = counts.numel()
     if ntiles == 0:
         return torch.zeros(1, dtype=torch.int32, device=counts.device)
-    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=counts.device)
-    lib = _library(counts.device)
-    _check(lib.smt_tile_offsets(counts.device.index, counts.data_ptr(), ntiles,
-                                offsets.data_ptr(),
-                                torch.cuda.current_stream(counts.device).cuda_stream),
-           "tile_offsets")
+    if ntiles > MAX_LAUNCH_CHARS // TILE:  # every block of the scan resident at once
+        raise ValueError(f"{ntiles} counts: a launch has at most {MAX_LAUNCH_CHARS // TILE} tiles")
+    dev = counts.device
+    offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status, epoch = _status_words(dev, stream, -(-ntiles // SCAN_BLOCK))
+    lib = _library(dev)
+    _check(lib.smt_tile_offsets(dev.index, counts.data_ptr(), ntiles, offsets.data_ptr(),
+                                status.data_ptr(), epoch, stream), "tile_offsets")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES["tile_offsets"] += 1
     return offsets

@@ -1,7 +1,7 @@
 """Sequence containers: the packed-seq equivalent layer of the port.
 
-The port's own copy of `simd_minimizers_tpu/seq/packed.py`, trimmed to what
-the port uses. It reproduces the behavior of the `packed-seq` crate (v5) as
+The port's own copy of `simd_minimizers_tpu/seq/packed.py`, with the same
+public surface. It reproduces the behavior of the `packed-seq` crate (v5) as
 used by the reference (the crate's src/lib.rs:57-64):
 
 - 2-bit DNA codes ``A=00, C=01, T=10, G=11`` (the crate's src/lib.rs:121-128).
@@ -11,6 +11,10 @@ used by the reference (the crate's src/lib.rs:57-64):
 - ``GenericSeq``: general ASCII text (``&[u8]`` in the reference), whose
   "codes" are the raw byte values.
 - ``PackedNSeqVec``: packed sequence + per-base ambiguity mask (non-ACGT).
+
+``read_kmer`` / ``read_revcomp_kmer`` return Python ints (arbitrary width,
+covering the reference's u64/u128 variants), first char in the lowest bits:
+2 bits a char for DNA, 8 for ``GenericSeq``; the complement is ``c ^ 2``.
 """
 
 from __future__ import annotations
@@ -23,11 +27,26 @@ import numpy as np
 # (both cases). Other characters map pseudo-randomly; ambiguity is tracked
 # separately by PackedNSeqVec (as in packed-seq).
 _ASCII_TO_CODE = ((np.arange(256, dtype=np.uint8) >> 1) & 3).astype(np.uint8)
+_CODE_TO_ASCII = np.frombuffer(b"ACTG", dtype=np.uint8)
 _IS_ACGT = np.zeros(256, dtype=bool)
 for _c in b"ACGTacgt":
     _IS_ACGT[_c] = True
 
 COMPLEMENT_XOR = 2  # complement of a 2-bit code c is c ^ 2 (A<->T, C<->G)
+
+
+def complement_codes(codes: np.ndarray) -> np.ndarray:
+    return (codes ^ np.uint8(COMPLEMENT_XOR)).astype(np.uint8)
+
+
+def _kmer_value(codes: np.ndarray, bits: int = 2) -> int:
+    """Pack chars into an int, first char in the lowest bits, `bits` per
+    char (packed-seq's ``read_kmer``: CAGAG at position 7 of the crate's
+    doc-test sequence is 0b11_00_11_00_01)."""
+    v = 0
+    for i, c in enumerate(codes.tolist()):
+        v |= int(c) << (bits * i)
+    return v
 
 
 def _as_bytes(seq: bytes | bytearray | np.ndarray) -> np.ndarray:
@@ -82,15 +101,26 @@ class PackedSeq:
         assert 0 <= start <= end <= self.length
         return PackedSeq(self.data, self.offset + start, end - start)
 
+    def read_kmer(self, length: int, pos: int) -> int:
+        return _kmer_value(self.codes()[pos : pos + length])
+
+    def read_revcomp_kmer(self, length: int, pos: int) -> int:
+        return _kmer_value(complement_codes(self.codes()[pos : pos + length])[::-1])
+
     def to_revcomp(self) -> "PackedSeqVec":
-        rc = (self.codes() ^ np.uint8(COMPLEMENT_XOR))[::-1]
-        return PackedSeqVec.from_codes(rc)
+        return PackedSeqVec.from_codes(complement_codes(self.codes())[::-1])
+
+    def to_ascii(self) -> bytes:
+        return _CODE_TO_ASCII[self.codes()].tobytes()
 
     def packed_with_offset(self) -> tuple[np.ndarray, int]:
         """Packed bytes covering the sequence plus the in-byte base offset."""
         first = self.offset // 4
         last = (self.offset + self.length + 3) // 4
         return self.data[first:last], self.offset % 4
+
+    def as_slice(self) -> "PackedSeq":
+        return self
 
 
 class PackedSeqVec(PackedSeq):
@@ -130,6 +160,26 @@ class AsciiSeq:
     def slice(self, start: int, end: int) -> "AsciiSeq":
         return AsciiSeq(self.seq[start:end])
 
+    def read_kmer(self, length: int, pos: int) -> int:
+        return _kmer_value(self.codes()[pos : pos + length])
+
+    def read_revcomp_kmer(self, length: int, pos: int) -> int:
+        return _kmer_value(complement_codes(self.codes()[pos : pos + length])[::-1])
+
+    def to_revcomp(self) -> "AsciiSeq":
+        return AsciiSeq(_CODE_TO_ASCII[complement_codes(self.codes())[::-1]])
+
+    def as_slice(self) -> "AsciiSeq":
+        return self
+
+    @staticmethod
+    def random(n: int, rng: np.random.Generator | None = None) -> "AsciiSeq":
+        rng = rng or np.random.default_rng()
+        return AsciiSeq(_CODE_TO_ASCII[rng.integers(0, 4, size=n, dtype=np.uint8)])
+
+
+AsciiSeqVec = AsciiSeq  # owned and view types coincide in Python
+
 
 class GenericSeq:
     """General ASCII text (`&[u8]` in the reference): codes are raw bytes.
@@ -155,6 +205,15 @@ class GenericSeq:
     def slice(self, start: int, end: int) -> "GenericSeq":
         return GenericSeq(self.seq[start:end])
 
+    def read_kmer(self, length: int, pos: int) -> int:
+        return _kmer_value(self.seq[pos : pos + length], 8)
+
+    def read_revcomp_kmer(self, length: int, pos: int) -> int:
+        return _kmer_value(complement_codes(self.seq[pos : pos + length])[::-1], 8)
+
+    def as_slice(self) -> "GenericSeq":
+        return self
+
 
 @dataclasses.dataclass
 class PackedNSeqVec:
@@ -173,6 +232,9 @@ class PackedNSeqVec:
 
     def slice(self, start: int, end: int) -> "PackedNSeqVec":
         return PackedNSeqVec(self.seq.slice(start, end), self.ambiguous[start:end])
+
+    def as_slice(self) -> "PackedNSeqVec":
+        return self
 
 
 def as_seq(seq) -> "PackedSeq | AsciiSeq | GenericSeq | PackedNSeqVec":

@@ -137,11 +137,21 @@ def test_each_kernel_vs_its_plain_version(dev, canonical):
                        pipeline.tile_append_plain(scratch, counts, offsets, total, TILE))
 
 
-@pytest.mark.parametrize("ntiles", [1, 1023, 1024, 1025, 24_415])
+@pytest.mark.parametrize("ntiles", [1, 2, 1023, 1024, 1025, 4095, 4096, 4097, 32_768, 32_769,
+                                    24_415, 131_072, 1 << 19])
 def test_tile_offsets_many_tiles(dev, ntiles):
-    # more tiles than the scan kernel's 1024 threads: each thread sums a run
-    counts = torch.randint(0, TILE + 1, (ntiles,), dtype=torch.int32, device=dev)
+    # the blocks of SCAN_BLOCK = 1024 counts and their ragged ends, a
+    # look-back past 32 blocks (32,769 counts), a 2^29-char span's 131,072
+    # tiles and the most a launch has (2^19)
+    g = torch.Generator(device=dev).manual_seed(ntiles)
+    counts = torch.randint(0, TILE + 1, (ntiles,), dtype=torch.int32, device=dev, generator=g)
     assert torch.equal(fused.tile_offsets(counts), pipeline.tile_offsets_plain(counts))
+    zeros = torch.zeros(ntiles, dtype=torch.int32, device=dev)
+    assert torch.equal(fused.tile_offsets(zeros), torch.zeros(ntiles + 1, dtype=torch.int32,
+                                                              device=dev))
+    # counts that do not start on 16 bytes take the scalar loads
+    buf = torch.randint(0, TILE + 1, (ntiles + 1,), dtype=torch.int32, device=dev, generator=g)
+    assert torch.equal(fused.tile_offsets(buf[1:]), pipeline.tile_offsets_plain(buf[1:]))
 
 
 @pytest.mark.parametrize("canonical", [False, True])
@@ -830,3 +840,157 @@ def test_multihost_nccl_world_of_one(dev):
         np.testing.assert_array_equal(aux[0], b)
     finally:
         dist.destroy_process_group()
+
+
+# -- the stored route: conflict-free keys and doubling passes ---------------
+
+STORED_W = [1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63]
+
+
+@pytest.mark.parametrize("w", STORED_W)
+@pytest.mark.parametrize("canonical", [False, True])
+def test_stored_route_w_sweep(dev, w, canonical):
+    """chip_smoke.py's sweep at a small size: every instance (each mode
+    family with and without an ambiguity plane) at each w of the stored
+    route, across tile seams, against the plain version and the oracle."""
+    k = 21 if (w % 2 or not canonical) else 22
+    l = k + w - 1
+    if w >= fused.LARGE_W_MIN:
+        pytest.skip(f"w = {w} takes the large-w route (LARGE_W_MIN = {fused.LARGE_W_MIN})")
+    assert fused.sub_tile(k, w, canonical) == 0
+    rng = np.random.default_rng(w * 2 + canonical)
+    n = 3 * TILE + 17 + l - 1
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    h = NtHasher(k, canonical=canonical)
+    modes = [pipeline.MODE_MINIMIZERS, SKM, CLOSED] + ([OPEN] if w % 2 else [])
+    for mode in modes:
+        for amb in (None, _clustered_mask(n, l, rng) | (rng.random(n) < 1e-3)):
+            got, want = _both(codes, k, w, h, dev, mode, amb)
+            _assert_planes(got, want, _oracle(codes, k, w, h, mode, amb))
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3])
+@pytest.mark.parametrize("d", [-1, 0, 1])
+@pytest.mark.parametrize("k,w,canonical", [(21, 11, True), (5, 7, False), (22, 16, True),
+                                           (21, 1, True), (21, 63, False)])
+def test_stored_route_tile_edges(dev, tiles, d, k, w, canonical):
+    """n = l - 1 + 4096 t + d: the last tile ends one window before, at, or
+    one window past a tile seam (and its chars at the end of the input)."""
+    l = k + w - 1
+    n = l - 1 + TILE * tiles + d
+    codes = np.random.default_rng(n).integers(0, 4, n, dtype=np.uint8)
+    h = NtHasher(k, canonical=canonical)
+    for mode in (pipeline.MODE_MINIMIZERS, SKM, CLOSED):
+        got, want = _both(codes, k, w, h, dev, mode)
+        _assert_planes(got, want, _oracle(codes, k, w, h, mode))
+
+
+@pytest.mark.parametrize("k,w", [(64, 5), (1001, 5), (1000, 2), (64, 1), (4095, 3)])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_stored_route_large_k(dev, k, w, canonical):
+    """Large k with small w: the strand count's popc over the T/G plane
+    spans many words, the hash runs start with O(k) loops."""
+    if canonical and (k + w) % 2:
+        k += 1
+    l = k + w - 1
+    rng = np.random.default_rng(k + w)
+    n = 2 * TILE + 17 + l - 1
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    h = NtHasher(k, canonical=canonical)
+    for mode, amb in ((pipeline.MODE_MINIMIZERS, None), (SKM, None),
+                      (CLOSED, _clustered_mask(n, l, rng))):
+        got, want = _both(codes, k, w, h, dev, mode, amb)
+        _assert_planes(got, want, _oracle(codes, k, w, h, mode, amb))
+
+
+@pytest.mark.parametrize("cls", [MulHasher, AntiLexHasher])
+@pytest.mark.parametrize("w", [1, 2, 8, 11, 33])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_stored_route_text_hashers(dev, cls, w, canonical):
+    """Text with the mul and antilex hashers on the stored route, with a
+    mask and with low-entropy runs whose keys tie."""
+    k = 21 if (w % 2 or not canonical) else 22
+    l = k + w - 1
+    rng = np.random.default_rng(w * 3 + canonical)
+    n = 2 * TILE + 17 + l - 1
+    text = rng.integers(32, 127, n, dtype=np.uint8)
+    runs = np.repeat(rng.integers(0, 256, n), rng.integers(1, 30, n))[:n].astype(np.uint8)
+    h = cls(k, canonical=canonical)
+    for codes in (text, runs):
+        for mode, amb in ((pipeline.MODE_MINIMIZERS, None), (SKM, None),
+                          (CLOSED, rng.random(n) < 1e-3)):
+            got, want = _both(codes, k, w, h, dev, mode, amb, text=True)
+            _assert_planes(got, want, _oracle(codes, k, w, h, mode, amb))
+
+
+@pytest.mark.parametrize("w", [1, 5, 11, 16])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_stored_route_meta_launch(dev, w, canonical):
+    """The length and offset read on the card (`meta`, a CUDA-graph
+    capture's launch) over a buffer sized for more chars: equal to the
+    plain version at the meta length and to the oracle plus the offset."""
+    k = 21 if (w % 2 or not canonical) else 22
+    l = k + w - 1
+    rng = np.random.default_rng(w + 100 * canonical)
+    cap = 2 * TILE + l - 1
+    h = NtHasher(k, canonical=canonical)
+    (kind, can, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev)
+    for n, offset in ((cap, 0), (TILE + l + 5, 12_345), (l, (1 << 32) - 7), (l - 1, 3)):
+        codes = rng.integers(0, 4, cap, dtype=np.uint8)
+        codes[n:] = 0
+        chars = convert.code_bytes(codes, dev)
+        meta = torch.tensor([n, offset - (1 << 32) if offset >= 1 << 31 else offset],
+                            dtype=torch.int32, device=dev)
+        scratch, counts = fused.minimizer_tiles(chars, cap, k, w, tables, rot, can,
+                                                meta=meta, kind=kind, byte_codes=True)
+        plain_scratch, plain_counts = pipeline.minimizer_tiles_plain(
+            chars[:n], n, k, w, tables, rot, can, TILE, offset=offset, byte_codes=True)
+        got = fused.tile_append(scratch, counts, fused.tile_offsets(counts), None)
+        total = int(plain_counts.sum())
+        want = pipeline.tile_append_plain(plain_scratch, plain_counts,
+                                          pipeline.tile_offsets_plain(plain_counts), total, TILE)
+        assert torch.equal(got[:total], want)
+        ref = (_oracle(codes[:n], k, w, h).astype(np.uint64) + offset).astype(np.uint32) if (
+            n >= l) else np.zeros(0, np.uint32)
+        np.testing.assert_array_equal(got[:total].cpu().numpy().view(np.uint32), ref)
+
+
+@pytest.mark.parametrize("side", [-1, 0, 1])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_routes_either_side_of_threshold(dev, side, canonical, monkeypatch):
+    """At LARGE_W_MIN - 1 (stored), LARGE_W_MIN and LARGE_W_MIN + 1
+    (large-w): the route the rule picks, and both routes forced, bit-equal
+    to each other, to the plain version and the oracle."""
+    w = fused.LARGE_W_MIN + side
+    k = 21 if (w % 2 or not canonical) else 22
+    assert (fused.sub_tile(k, w, canonical) == 0) == (side < 0)
+    rng = np.random.default_rng(w + canonical)
+    n = 2 * TILE + 5 + k + w - 2
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    h = NtHasher(k, canonical=canonical)
+    for mode, amb in ((pipeline.MODE_MINIMIZERS, None), (SKM, None),
+                      (CLOSED, _clustered_mask(n, k + w - 1, rng))):
+        ref = _oracle(codes, k, w, h, mode, amb)
+        runs = [_both(codes, k, w, h, dev, mode, amb)]
+        for threshold in (1, 1 << 16):
+            monkeypatch.setattr(fused, "LARGE_W_MIN", threshold)
+            runs.append(_both(codes, k, w, h, dev, mode, amb))
+        monkeypatch.undo()
+        for got, want in runs:
+            _assert_planes(got, want, ref)
+
+
+@pytest.mark.parametrize("slack", [0, 1, 2, 3, 8])
+@pytest.mark.parametrize("w", [3, 11, 33, 63])
+def test_stored_route_any_pass_count(dev, slack, w, monkeypatch):
+    """Every pass count from none (w loads per window) to the most (two
+    loads) gives the same result: the rule only trades passes for loads."""
+    monkeypatch.setattr(fused, "PASS_SLACK", slack)
+    k = 21 if w % 2 else 22
+    rng = np.random.default_rng(w + slack)
+    n = 2 * TILE + 33 + k + w - 2
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    for canonical in (False, True):
+        h = NtHasher(k, canonical=canonical)
+        got, want = _both(codes, k, w, h, dev)
+        _assert_planes(got, want, _oracle(codes, k, w, h))

@@ -98,16 +98,20 @@ def test_geometry_gate():
         assert not fused.fused_supported(21, (1 << 16) - fused.TILE + 1, canonical)
     assert fused.fused_supported(21, 11) and fused.fused_supported(64, 2)
     assert not fused.fused_supported(200_000, 11)
-    assert fused.sub_tile(fused.LARGE_W_MIN - 1) == 0
-    assert fused.sub_tile(5000) == fused.TILE and fused.sub_tile(3000) == 2048
+    assert fused.sub_tile(21, fused.LARGE_W_MIN - 1) == 0 and fused.sub_tile(21, 3000) == 0
+    assert fused.sub_tile(21, max(5000, fused.LARGE_W_MIN)) == fused.TILE
+    assert fused.sub_tile(21, 3000, mode=pipeline.MODE_SUPERKMERS) == 0
     # the large-w route: per arm the least key of TILE + 1 windows and two
-    # blocks of sub_tile(w) keys, whatever w
+    # blocks of sub_tile keys, whatever w
     w = 32_767
     assert (fused._tile_smem_bytes(21, w, True)
             == ((fused.TILE + 21 + w - 1 + 6) // 4 * 4 + 15) // 16 * 16
             + 4 * 2 * (fused.TILE + 1 + 2 * fused.TILE) + 32)
-    # chars, keys, then the nt fold's 2-bit tables (2 x 4 words)
-    assert fused._tile_smem_bytes(21, 11, True) == 4144 + 2 * (fused.TILE + 11) * 4 + 32
+    # the stored route: chars, keys in whole 32-word rows (4107 columns take
+    # 4128 words an arm), canonical the chars' T/G bits (4132 chars, 130
+    # words), then the nt fold's 2-bit tables (2 x 4 words)
+    assert fused._tile_smem_bytes(21, 11, True) == 4144 + 2 * 4128 * 4 + 130 * 4 + 32
+    assert fused._tile_smem_bytes(21, 11, False) == 4144 + 4128 * 4 + 32
     # super-k-mers stage two planes of TILE words in the keys' space; an
     # ambiguity plane adds the tile's bits in 32-bit words
     skm = pipeline.MODE_SUPERKMERS
@@ -118,11 +122,23 @@ def test_geometry_gate():
     assert fused.fused_supported(21, 40_000, False, skm)
     assert fused.fused_supported(21, 42_376, False, ambiguous=True)
     assert fused.fused_supported(21, 42_376, False)
-    # the stored route below LARGE_W_MIN: every column's key, per arm
+    # the stored route below LARGE_W_MIN: every column's key, per arm, in
+    # whole rows of 32, and canonical the T/G bits of the tile's chars
     w = fused.LARGE_W_MIN - 1
+    chars = (fused.TILE + 21 + w - 1 + 6) // 4 * 4
     assert (fused._tile_smem_bytes(21, w, True)
-            == ((fused.TILE + 21 + w - 1 + 6) // 4 * 4 + 15) // 16 * 16
-            + 4 * 2 * (fused.TILE + w) + 32)
+            == (chars + 15) // 16 * 16 + 4 * 2 * ((fused.TILE + w + 31) // 32 * 32)
+            + (chars + 31) // 32 * 4 + 32)
+    # where the stored layout would not fit (a huge k), the large-w route
+    # takes the w below LARGE_W_MIN too
+    k = 190_001
+    assert fused.sub_tile(k, 63) > 0 and fused.fused_supported(k, 63)
+    assert fused.sub_tile(k - 20_000, 63) == 0
+    # the stored route's doubling passes: ceil(w / 2^passes) loads per window
+    for w in (1, 2, 3, 4, 7, 8, 11, 16, 63, 1000):
+        p = fused.min_passes(w)
+        assert 0 <= p and 1 << p <= w
+        assert -(-w // (1 << p)) <= 2 << fused.PASS_SLACK
 
 
 @pytest.mark.parametrize("k,w", [(200_001, 11), (21, 61_441)])
