@@ -24,8 +24,8 @@ and mul paths (2/(w+1) for minimizers and super-k-mers, 2/w for closed
 and 1/w for open syncmers, each within 0.01; antilex's density is higher
 on random input and is held only by equality), times each kernel, the
 kernel path and their plain versions with CUDA events (`tile_offsets` and
-`torch.cumsum` beside it as device time per call in a replayed CUDA graph,
-and as eager calls), computes each kernel's bound from this run's
+`torch.cumsum` beside it as eager calls and as device time per call in a
+replayed CUDA graph), computes each kernel's bound from this run's
 inputs, measures the peak device memory of both paths, and splits a warm
 `Builder.run` into upload, kernel path and download (through pinned
 memory, with the pageable `.cpu()` beside it). It times the host packing
@@ -69,8 +69,9 @@ Then the paths of the last slices:
   passes) at w = 1..63 in four modes (minimizers, super-k-mers, closed
   syncmers, minimizers with the chromosome mask) on both strands at 1e7
   bases, and k = 64 and 1,001 at w = 5, each launch against its plain
-  version; every pass count at the main shape, in turns; tile_offsets on
-  a 2^29-char span's 131,072 counts beside torch.cumsum;
+  version; tile_offsets on a 2^29-char span's 131,072 counts beside
+  torch.cumsum (the pass counts of the stored route: kernel_ab.py
+  --passes);
 - the two routes of the sliding minimum from w = 16 to the largest w the
   stored route fits (1e7 bases, both strands), bit-equal to each other,
   timed in turns: where the large-w route starts to win
@@ -204,10 +205,10 @@ def _graph_ms(fn, reps: int = 20, replays: int = 5) -> tuple[float, float, float
 
 def _scan_timing(rec, counts, note):
     """tile_offsets against its plain version on `counts`; its time and
-    torch.cumsum's, both as device time per call in a replayed CUDA graph
-    (the kernels' numbers) and as eager calls (device time of back-to-back
-    calls from Python, which the host's enqueue bounds at this size).
-    Returns the offsets."""
+    torch.cumsum's as eager calls (CUDA events around back-to-back calls
+    from Python, which the host's enqueue bounds at this size: the kernels
+    line's `ms` and `library_ms`) and as device time per call in a replayed
+    CUDA graph (`graph_ms`, `library_graph_ms`). Returns the offsets."""
     import torch
 
     from simd_minimizers_tpu_torch.ops import fused, pipeline
@@ -215,16 +216,18 @@ def _scan_timing(rec, counts, note):
     offsets = fused.tile_offsets(counts)
     err = _max_abs_err(offsets, pipeline.tile_offsets_plain(counts))
     ntiles = counts.numel()
-    ours = _graph_ms(lambda: fused.tile_offsets(counts))
-    lib = _graph_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32))
-    rec.entry("tile_offsets", 841, err, ours,
-              _median_ms(lambda: pipeline.tile_offsets_plain(counts), 5, 10, 2),
-              _bound(4 * ntiles + 4 * (ntiles + 1), 2 * ntiles), lib)
     eager = _median_ms(lambda: fused.tile_offsets(counts), 5, 10, 2)
     eager_lib = _median_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32), 5, 10, 2)
-    print(f"  tile_offsets on {ntiles} counts: device {ours[0]:.5f} ms ({ours[1]:.5f}.."
-          f"{ours[2]:.5f}), torch.cumsum {lib[0]:.5f} ms ({lib[1]:.5f}..{lib[2]:.5f}); eager "
-          f"calls {eager[0]:.5f} ms, torch.cumsum {eager_lib[0]:.5f} ms; {note}")
+    graph = _graph_ms(lambda: fused.tile_offsets(counts))
+    graph_lib = _graph_ms(lambda: torch.cumsum(counts, 0, dtype=torch.int32))
+    rec.entry("tile_offsets", 841, err, eager,
+              _median_ms(lambda: pipeline.tile_offsets_plain(counts), 5, 10, 2),
+              _bound(4 * ntiles + 4 * (ntiles + 1), 2 * ntiles), eager_lib,
+              {"graph_ms": graph[0], "library_graph_ms": graph_lib[0]})
+    print(f"  tile_offsets on {ntiles} counts: eager {eager[0]:.5f} ms ({eager[1]:.5f}.."
+          f"{eager[2]:.5f}), torch.cumsum {eager_lib[0]:.5f} ms; in a CUDA graph "
+          f"{graph[0]:.5f} ms ({graph[1]:.5f}..{graph[2]:.5f}), torch.cumsum {graph_lib[0]:.5f} "
+          f"ms ({graph_lib[1]:.5f}..{graph_lib[2]:.5f}); {note}")
     return offsets
 
 
@@ -299,14 +302,14 @@ class _Kernels:
         self.launches_total = dict.fromkeys(fused.LAUNCHES, 0)
         self.launches_by_entry = {}
 
-    def entry(self, name, source_line, err, kt, pt, bound, library=None):
+    def entry(self, name, source_line, err, kt, pt, bound, library=None, extra=None):
         e = self.entries.setdefault(name, {
             "name": name, "route": "cuda",
             "source": "simd_minimizers_tpu_torch/csrc/minimizers.cu",
             "replaces": f"simd_minimizers_tpu/ops/fused.py:{source_line}",
             "launches": 0, "max_abs_err": 0, "ms": kt[0], "plain_ms": pt[0],
             "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None if library is None else library[0]})
+            "library_ms": None if library is None else library[0], **(extra or {})})
         e["max_abs_err"] = max(e["max_abs_err"], err)
         lib = "" if library is None else f", library {library[0]:.4f} ms"
         print(f"  {name}: max_abs_err {err}; kernel {kt[0]:.4f} ms "
@@ -1226,9 +1229,7 @@ def _stored_sweep(ctx):
     passes): both strands x minimizers, super-k-mers, closed syncmers and
     minimizers with the chromosome mask x w in STORED_W at 1e7 bases, and k
     = 64 and 1,001 at w = 5, each launch against minimizer_tiles_plain on
-    the card and timed; then at the main shape (k=21, w=11, 1e8 bases)
-    every pass count, in turns (0 passes: w conflict-free loads per window
-    and arm), bit-equal; and tile_offsets on a 2^29-char span's 131,072
+    the card and timed; then tile_offsets on a 2^29-char span's 131,072
     counts beside torch.cumsum."""
     import numpy as np
     import torch
@@ -1273,32 +1274,6 @@ def _stored_sweep(ctx):
               + f"; {note}")
     del chars, plane
     torch.cuda.empty_cache()
-
-    # every pass count at the main shape, in turns
-    chars = ctx["chars_dna"]
-    slack = fused.PASS_SLACK
-    top = W.bit_length() - 1
-    print(f"stored route at k={K} w={W}, {N} bases: passes (ms of minimizer_tiles, "
-          f"PASS_SLACK = {slack}, {fused.min_passes(W)} passes):")
-    try:
-        for canonical in (True, False):
-            (kind, can, rot), tables = convert.hasher_tensors(smt.NtHasher(K, canonical), dev)
-            args = (chars, N, K, W, tables, rot, can)
-            times, outs = {}, {}
-            for order in (range(top + 1), reversed(range(top + 1))):
-                for passes in order:
-                    fused.PASS_SLACK = top - passes
-                    outs[passes] = fused.fused_sketch(*args)
-                    times.setdefault(passes, []).append(
-                        _median_ms(lambda: fused.minimizer_tiles(*args), 3, 10, 2)[0])
-            if not all(torch.equal(o, outs[0]) for o in outs.values()):
-                raise RuntimeError("the pass counts disagree")
-            print(f"  {'canonical' if canonical else 'forward'}: " + ", ".join(
-                f"{p} passes ({-(-W // (1 << p))} loads) {sum(t) / 2:.4f}"
-                for p, t in times.items()) + f"; bit-equal; {note}")
-            del outs
-    finally:
-        fused.PASS_SLACK = slack
 
     # tile_offsets on a 2^29-char span's tile count
     g = torch.Generator(device=dev).manual_seed(ctx["seed"])
@@ -1601,14 +1576,10 @@ def main() -> int:
     _read_batches(ctx)
 
     # -- the stored route, large w, short sequences, sharded --------------
-    ctx["chars_dna"] = convert.packed_words(seq, dev)
     for phase in (_stored_sweep, _crossover, _large_w, _short_sequences, _sharded):
         t = time.perf_counter()
         phase(ctx)
         print(f"  ({phase.__name__[1:]}: {time.perf_counter() - t:.1f} s)")
-        if phase is _stored_sweep:
-            del ctx["chars_dna"]
-            torch.cuda.empty_cache()
 
     rec.finish()
 

@@ -58,8 +58,9 @@
 // plus 4 B reread, so at the density 2/(w+1) of random input it moves under
 // 3 B/char per plane: far below the card's 3.35 TB/s. The work is integer
 // ALU and shared memory: per k-mer a table lookup of the char pair (2-bit
-// input; two lookups and funnel shifts for text) and a funnel shift
-// (rolling hash, both strands; antilex: two shifts and an or per strand),
+// input on the stored route; two lookups and funnel shifts for text and on
+// the large-w route) and a funnel shift (rolling hash, both strands;
+// antilex: two shifts and an or per strand),
 // per window a sliding minimum per arm and a sliding T/G count. The function
 // itself needs about 29 operations per window canonical and 14 forward at
 // k=21 (chip_smoke.py's bound, with an O(1) sliding minimum). The design
@@ -104,7 +105,10 @@
 //   2^16 (the 16-bit column) fits. It hashes w + T k-mers per T windows and
 //   takes three mins per window (a suffix of block 0, the core's least key,
 //   a prefix of block 1), and counts the first window of each thread by a
-//   block scan instead of O(l) per thread.
+//   block scan instead of O(l) per thread. Where one block fills an SM
+//   (canonical from w ~ 13,000; forward with a mask at w = 61,439) the hash
+//   runs' latency is exposed, and the route keeps the hash step and k-mer
+//   test it had before the stored route's redesign (`key_wide`).
 //
 // tile_offsets is bound by latency, not by bytes: at 1e8 chars it scans
 // 24,415 counts (98 KB, 0.06 us of the card's bandwidth both ways), and one
@@ -113,11 +117,12 @@
 // int4 (4 a thread, coalesced), sums them with a warp-shuffle block scan,
 // publishes its sum and looks back over its predecessors' published sums
 // and prefixes, 32 at a time with one warp (the decoupled look-back of a
-// single-pass scan), then writes its offsets as int4. The look-back's
-// status words carry the launch's epoch, so a launch needs neither a memset
-// nor a clearing pass: each stream keeps its own words and epoch counter
-// (ops/fused.tile_offsets), and a CUDA-graph capture gets words of its own,
-// zeroed in the graph at each replay.
+// single-pass scan), then writes its offsets as int4. A block takes its
+// place in the scan from an atomic ticket, so it waits only on blocks that
+// have started (none on a block that other kernels keep off the SMs), and
+// the last block to finish zeroes the status words: a launch needs no
+// memset, eager or in a CUDA graph, and the card keeps one set of words
+// (ops/fused.tile_offsets).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -389,12 +394,13 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
   }
 
   // B2 + B3 keys: each thread hashes a contiguous run of k-mers, the first
-  // in O(k) (O(min(k, 16)) for antilex), the rest by the rolling update,
-  // and hands each hash to put(column, hash). Keys pack the top 16 hash bits
+  // in O(k) (O(min(k, 16)) for antilex), the rest by the rolling update
+  // (with `pairs`, one lookup of s_roll per strand and step), and hands
+  // each hash to put(column, hash). Keys pack the top 16 hash bits
   // with the column j (leftmost arm) or 0xFFFF - j (rightmost arm); k-mers
   // outside [0, n - k] get INVALID on both arms. Column j's k-mer starts at
   // s_c[j + 3].
-  auto hash_cols = [&](int j0, int j1, auto&& put) {
+  auto hash_cols = [&](int j0, int j1, bool pairs, auto&& put) {
     if (j0 >= j1) return;
     if (antilex) {
       // antilex: ~ of the first J = min(k, 16) chars & 3 packed MSB-first
@@ -425,10 +431,9 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
         h ^= rotl(tF[c], i + rot);
         if (CANONICAL) r ^= rotl(tR[c], k - 1 - i + rot);
       }
-      // the rolling step XORs in both chars' rotated values: for 2-bit
-      // chars one lookup of s_roll at 4 c_out + c_in, for text two of each
-      // table
-      const bool pairs = !text;
+      // the rolling step XORs in both chars' rotated values: with `pairs`
+      // (2-bit chars) one lookup of s_roll at 4 c_out + c_in, else two of
+      // each table
       for (int j = j0;;) {
         put(j, CANONICAL ? h ^ r : h);
         if (++j >= j1) break;
@@ -450,6 +455,14 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
   auto key_r = [&](int j, uint32_t hash) -> uint32_t {
     return j >= j_lo && j <= j_hi ? (hash & TOP16) | (0xFFFFu - (uint32_t)j) : INVALID;
   };
+  // The large-w route keeps the 64-bit test of a column's k-mer and the two
+  // table lookups per rolling step: with the stored route's 32-bit bounds
+  // and char-pair lookup, its forward w = 61,439 masked path ran 7% slower
+  // on the H100 (PERF.md). key is the column's packed low 16 bits.
+  auto key_wide = [&](int j, uint32_t hash, uint32_t key) -> uint32_t {
+    const long long kp = t0 - 1 + j;
+    return kp >= 0 && kp <= (long long)n - k ? (hash & TOP16) | key : INVALID;
+  };
 
   if (!T) {
     // stored route: the keys of all TILE + w columns, the first rp =
@@ -466,7 +479,7 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
     const int rp = min(passes, 2), pr = 1 << rp;
     uint32_t kl0 = INVALID, kl1 = INVALID, kl2 = INVALID, kl3 = INVALID;
     uint32_t kr0 = INVALID, kr1 = INVALID, kr2 = INVALID, kr3 = INVALID;
-    hash_cols(j0, min(j0 + per + pr - 1, nk), [&](int j, uint32_t hash) {
+    hash_cols(j0, min(j0 + per + pr - 1, nk), !text, [&](int j, uint32_t hash) {
       kl3 = kl2, kl2 = kl1, kl1 = kl0, kl0 = key_l(j, hash);
       if (CANONICAL) kr3 = kr2, kr2 = kr1, kr1 = kr0, kr0 = key_r(j, hash);
       const int c = j - pr + 1;
@@ -535,9 +548,9 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
       const int per = (w + T + THREADS - 1) / THREADS;
       const int j0 = c0 + tid * per;
       uint32_t cl = INVALID, cr = INVALID;
-      hash_cols(j0, min(j0 + per, c0 + w + T), [&](int j, uint32_t hash) {
-        const uint32_t kl = key_l(j, hash);
-        const uint32_t kr = CANONICAL ? key_r(j, hash) : INVALID;
+      hash_cols(j0, min(j0 + per, c0 + w + T), false, [&](int j, uint32_t hash) {
+        const uint32_t kl = key_wide(j, hash, (uint32_t)j);
+        const uint32_t kr = CANONICAL ? key_wide(j, hash, 0xFFFFu - (uint32_t)j) : INVALID;
         const int r = j - c0;
         if (r < T) {
           b0l[r] = kl;
@@ -701,25 +714,31 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
 }
 
 // B8, part 1: offsets[t] = sum of counts[0..t), offsets[ntiles] = total.
-// Block b scans counts [b SCAN_BLOCK, (b + 1) SCAN_BLOCK): thread x loads
-// its 4 as an int4 (scalar loads and stores where a pointer is not
+// status: a ticket counter, a finished-block counter, then one word per
+// block, all zero at the start of a launch and again at its end. A block
+// takes its index b from the ticket counter (so every block before b has
+// started, whatever order the card starts blocks in and whatever else runs
+// beside them) and scans counts [b SCAN_BLOCK, (b + 1) SCAN_BLOCK): thread
+// x loads its 4 as an int4 (scalar loads and stores where a pointer is not
 // 16-byte aligned or the counts end), the block sums them and publishes
-// its sum in status[b] (SCAN_AGG); then its first warp looks back over the
+// its sum in its word (SCAN_AGG); then its first warp looks back over the
 // 32 blocks before it at once (a lane each), waits until each has
 // published, and adds the sums up to the nearest block that has published
 // its inclusive prefix (SCAN_PRE), 32 blocks further back if none has; it
-// publishes its own prefix and the block writes its offsets. A status word
-// counts only with this launch's `epoch` in its top 30 bits, so words that
-// earlier launches left need no clearing. Every block is resident at once
-// (at most 512 of 256 threads: ntiles <= 2^19), so the waits end.
+// publishes its own prefix and the block writes its offsets. The last block
+// to finish zeroes the status for the next launch.
 __global__ void __launch_bounds__(SCAN_THREADS)
 tile_offsets(const int* __restrict__ counts, int ntiles, int* __restrict__ offsets,
-             unsigned long long* status, int epoch) {
+             unsigned long long* status) {
   __shared__ int s_warp[SCAN_THREADS / 32];
-  __shared__ int s_before;
+  __shared__ int s_b, s_before;
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) s_b = (int)atomicAdd(status, 1ull);
+  __syncthreads();
+  const int b = s_b;
   const bool vec =
       ((reinterpret_cast<uintptr_t>(counts) | reinterpret_cast<uintptr_t>(offsets)) & 15) == 0;
-  const int base = blockIdx.x * SCAN_BLOCK + 4 * SCAN_VECS * (int)threadIdx.x;
+  const int base = b * SCAN_BLOCK + 4 * SCAN_VECS * (int)threadIdx.x;
   int4 x[SCAN_VECS];
 #pragma unroll
   for (int u = 0; u < SCAN_VECS; ++u) {
@@ -739,21 +758,20 @@ tile_offsets(const int* __restrict__ counts, int ntiles, int* __restrict__ offse
   int total;
   const int incl = block_inclusive_scan<SCAN_THREADS>(sum, s_warp, &total);
   if (threadIdx.x < 32) {
-    volatile unsigned long long* st = status;
-    const unsigned long long tag = (unsigned long long)epoch << 34;
-    const int lane = threadIdx.x, b = blockIdx.x;
+    volatile unsigned long long* st = status + 2;
+    const int lane = threadIdx.x;
     int before = 0;
     if (b == 0) {
-      if (lane == 0) st[0] = tag | SCAN_PRE | (uint32_t)total;
+      if (lane == 0) st[0] = SCAN_PRE | (uint32_t)total;
     } else {
-      if (lane == 0) st[b] = tag | SCAN_AGG | (uint32_t)total;
+      if (lane == 0) st[b] = SCAN_AGG | (uint32_t)total;
       for (int end = b - 1;; end -= 32) {
         const int j = end - lane;
-        unsigned long long v = tag | SCAN_PRE;  // before block 0: a prefix of 0
+        unsigned long long v = SCAN_PRE;  // before block 0: a prefix of 0
         if (j >= 0) {
           do {
             v = st[j];
-          } while ((v >> 34) != (unsigned long long)epoch);
+          } while (v == 0);
         }
         const unsigned pre = __ballot_sync(0xFFFFFFFFu, (v & SCAN_PRE) != 0);
         const int first = __ffs(pre) - 1;  // the nearest block with a prefix, or -1
@@ -763,7 +781,7 @@ tile_offsets(const int* __restrict__ counts, int ntiles, int* __restrict__ offse
         before += add;
         if (first >= 0) break;
       }
-      if (lane == 0) st[b] = tag | SCAN_PRE | (uint32_t)(before + total);
+      if (lane == 0) st[b] = SCAN_PRE | (uint32_t)(before + total);
     }
     if (lane == 0) {
       s_before = before;
@@ -786,6 +804,16 @@ tile_offsets(const int* __restrict__ counts, int ntiles, int* __restrict__ offse
       if (i + 2 < ntiles) offsets[i + 2] = o.z;
       if (i + 3 < ntiles) offsets[i + 3] = o.w;
     }
+  }
+  // every read and write of the status by this block is done (the barrier
+  // after the look-back); the fence orders its word before the count
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(status + 1, 1ull) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (s_last) {
+    for (int i = threadIdx.x; i < (int)gridDim.x + 2; i += SCAN_THREADS) status[i] = 0;
   }
 }
 
@@ -830,7 +858,6 @@ TilesKernel tiles_instance(bool canonical, int mode, bool amb) {
 extern "C" {
 
 int smt_tile_windows() { return TILE; }
-int smt_scan_block() { return SCAN_BLOCK; }
 
 // Every function below works on card `device` and returns a CUDA error
 // code (0 = success); a launch returns cudaGetLastError() after it.
@@ -889,17 +916,17 @@ int smt_minimizer_tiles(int device, const void* words, long long nbytes, int n, 
   return (int)cudaGetLastError();
 }
 
-// status: (ntiles + SCAN_BLOCK - 1) / SCAN_BLOCK words of 8 bytes that no
-// other launch uses at the same time, holding no word tagged with epoch
-// (1 .. 2^30 - 1): zero, or left by launches with other epochs.
+// status: status_words zeroed words of 8 bytes, at least 2 + (ntiles +
+// SCAN_BLOCK - 1) / SCAN_BLOCK, that no other launch uses at the same
+// time; each launch leaves them zeroed.
 int smt_tile_offsets(int device, const void* counts, int ntiles, void* offsets, void* status,
-                     int epoch, void* stream) {
+                     long long status_words, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (epoch < 1 || epoch >= (1 << 30)) return (int)cudaErrorInvalidValue;
   const int blocks = (ntiles + SCAN_BLOCK - 1) / SCAN_BLOCK;
+  if (ntiles < 1 || status_words < 2 + blocks) return (int)cudaErrorInvalidValue;
   tile_offsets<<<blocks, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)counts, ntiles, (int*)offsets, (unsigned long long*)status, epoch);
+      (const int*)counts, ntiles, (int*)offsets, (unsigned long long*)status);
   return (int)cudaGetLastError();
 }
 

@@ -32,11 +32,10 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "smt_tile_windows": ([], _I),
-    "smt_scan_block": ([], _I),
     "smt_init": ([_I], _I),
     "smt_minimizer_tiles": ([_I, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _LL, _I,
                              _I, ctypes.c_uint, _P, _I, _I, _P, _P, _I, _P], _I),
-    "smt_tile_offsets": ([_I, _P, _I, _P, _P, _I, _P], _I),
+    "smt_tile_offsets": ([_I, _P, _I, _P, _P, _LL, _P], _I),
     "smt_tile_append": ([_I, _P, _P, _P, _I, _I, _P, _P], _I),
 }
 

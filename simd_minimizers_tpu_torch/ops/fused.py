@@ -62,7 +62,7 @@ LARGE_W_MIN = 8192  # the H100's crossover (PERF.md, chip_smoke.py's route compa
 # the stored route's window takes 2^PASS_SLACK to 2^(PASS_SLACK + 1) loads
 # per arm: its doubling passes stop PASS_SLACK short of 2^passes <= w; at
 # w = 11 two passes, which the hash runs take in registers, beat one and
-# three (PERF.md, chip_smoke.py's pass sweep)
+# three (PERF.md, kernel_ab.py --passes)
 PASS_SLACK = 1
 
 # csrc/minimizers.cu MINIMIZERS, SUPERKMERS, SYNCMERS: the kernel's mode
@@ -90,6 +90,9 @@ MAX_LAUNCH_CHARS = 1 << 31  # chars of one launch: in-kernel values are below 2^
 MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 
 _ready_devices: set[int] = set()
+# per card: tile_offsets' ticket and finished-block counters and one
+# look-back word per block of the largest scan, zero between launches
+_scan_status: dict[int, torch.Tensor] = {}
 
 
 def min_passes(w: int) -> int:
@@ -156,14 +159,19 @@ def _check(err: int, what: str) -> None:
 
 
 def _library(device: torch.device):
-    """The kernel library, set up once per card (TILE agreement, every
-    minimizer_tiles instance's shared-memory limit)."""
+    """The kernel library, set up once per card, before any CUDA-graph
+    capture (TILE agreement, every minimizer_tiles instance's shared-memory
+    limit, tile_offsets' zeroed status words)."""
     lib = _build.library()
     if device.index not in _ready_devices:
-        if lib.smt_tile_windows() != TILE or lib.smt_scan_block() != SCAN_BLOCK:
-            raise RuntimeError("csrc/minimizers.cu TILE or SCAN_BLOCK disagrees with "
-                               "ops/fused.py")
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the kernels are set up on a card outside a CUDA-graph capture: "
+                               "call ops.fused._library(device) first")
+        if lib.smt_tile_windows() != TILE:
+            raise RuntimeError("csrc/minimizers.cu TILE disagrees with ops/fused.py")
         _check(lib.smt_init(device.index), "smt_init")
+        _scan_status[device.index] = torch.zeros(2 + MAX_LAUNCH_CHARS // TILE // SCAN_BLOCK,
+                                                 dtype=torch.int64, device=device)
         _ready_devices.add(device.index)
     return lib
 
@@ -198,7 +206,7 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
                     rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                     ambiguous: torch.Tensor | None = None, *, text: bool = False,
                     kind: str = "nt", offset: int = 0, byte_codes: bool = False,
-                    meta: torch.Tensor | None = None):
+                    meta: torch.Tensor | None = None, passes: int | None = None):
     """Kernel 1: (scratch, counts) for the first n chars of `chars` (uint8:
     the 2-bit byte stream of convert.packed_words, with `byte_codes` 2-bit
     codes one per byte, of which the low two bits count, or with `text` the
@@ -213,7 +221,9 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     on the device of chars, holds the length and the offset's bits that the
     kernel reads in place of n and offset, as a CUDA-graph capture needs
     (ops/device_sketcher.py; on the card only); n then sizes the launch and
-    bounds the length.
+    bounds the length. `passes` sets the stored route's doubling passes
+    (default `min_passes(w)`; 2^passes <= w), which change its time, not
+    its result.
 
     Inside a CUDA-graph capture the launch is not counted in LAUNCHES: each
     replay of the graph counts it."""
@@ -242,6 +252,11 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     if meta is not None and (meta.dtype != torch.int32 or meta.shape != (2,)
                              or meta.device.type != "cuda" or meta.device != chars.device):
         raise ValueError("meta must be an int32 (2,) tensor on the card of chars")
+    t = sub_tile(k, w, canonical, mode, ambiguous is not None, text, kind)
+    if passes is None:
+        passes = 0 if t else min_passes(w)
+    elif t or not 0 <= passes or 1 << passes > w:
+        raise ValueError(f"passes={passes}: the stored route takes 2^passes <= w = {w}")
     if _device_kind(chars) == "cpu":
         return pipeline.minimizer_tiles_plain(chars, n, k, w, tables, rot_offset, canonical, TILE,
                                               mode, ambiguous, text=text, kind=kind,
@@ -265,14 +280,13 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
         return scratch, counts
     lib = _library(dev)
     lo, hi = pipeline.syncmer_offsets(mode, w)
-    t = sub_tile(k, w, canonical, mode, ambiguous is not None, text, kind)
     _check(lib.smt_minimizer_tiles(
         dev.index, chars.data_ptr(), chars.numel(), n, k, w, int(canonical), _KERNEL_MODE[mode],
         int(bytes_in), int(text), int(kind == "antilex"),
         None if tables is None else tables.data_ptr(), rot_offset,
         None if ambiguous is None else ambiguous.data_ptr(),
         0 if ambiguous is None else ambiguous.numel(), lo, hi, offset,
-        None if meta is None else meta.data_ptr(), t, 0 if t else min_passes(w),
+        None if meta is None else meta.data_ptr(), t, passes,
         scratch.data_ptr(), counts.data_ptr(), ntiles,
         torch.cuda.current_stream(dev).cuda_stream),
         "minimizer_tiles")
@@ -281,52 +295,28 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     return scratch, counts
 
 
-# tile_offsets' look-back status words per (card, stream), with the epoch of
-# the stream's last launch: a launch tags its words with the next epoch, so
-# the words that earlier launches on the stream (which ran before it) left
-# never count; at 2^30 - 1 launches the words are zeroed and the count
-# starts again
-_scan_status: dict[tuple[int, int], list] = {}
-_SCAN_WORDS = MAX_LAUNCH_CHARS // TILE // SCAN_BLOCK  # blocks of the largest scan
-_SCAN_EPOCHS = (1 << 30) - 1
-
-
-def _status_words(device: torch.device, stream: int, words: int) -> tuple[torch.Tensor, int]:
-    """Status words and an epoch for a tile_offsets launch on `stream`: the
-    stream's own words and next epoch, or inside a CUDA-graph capture words
-    of the graph's own, zeroed at every replay, with epoch 1 (a replay may
-    run beside the stream, and replays the epoch it was captured with)."""
-    if torch.cuda.is_current_stream_capturing():
-        return torch.zeros(words, dtype=torch.int64, device=device), 1
-    key = (device.index, stream)
-    have = _scan_status.get(key)
-    if have is None or have[1] == _SCAN_EPOCHS:
-        have = _scan_status[key] = [torch.zeros(_SCAN_WORDS, dtype=torch.int64, device=device),
-                                    0]
-    have[1] += 1
-    return have[0], have[1]
-
-
 def tile_offsets(counts: torch.Tensor) -> torch.Tensor:
     """Kernel 2: the exclusive scan of `counts` with the total behind it,
     (ntiles + 1,) int32 (the running total the TPU kernel kept in SMEM).
-    On the card a single-pass scan of one block per SCAN_BLOCK counts,
-    with its look-back's status words from `_status_words`."""
+    On the card a single-pass scan of one block per SCAN_BLOCK counts over
+    the card's status words (`_library`), which each launch leaves zeroed:
+    launches on one card run one after another, as the port's do on the
+    current stream (a CUDA graph replays its launch there too)."""
     _require_int32(counts)
     if _device_kind(counts) == "cpu":
         return pipeline.tile_offsets_plain(counts)
     ntiles = counts.numel()
     if ntiles == 0:
         return torch.zeros(1, dtype=torch.int32, device=counts.device)
-    if ntiles > MAX_LAUNCH_CHARS // TILE:  # every block of the scan resident at once
+    if ntiles > MAX_LAUNCH_CHARS // TILE:  # the card's status words cover the largest launch
         raise ValueError(f"{ntiles} counts: a launch has at most {MAX_LAUNCH_CHARS // TILE} tiles")
     dev = counts.device
     offsets = torch.empty(ntiles + 1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status, epoch = _status_words(dev, stream, -(-ntiles // SCAN_BLOCK))
     lib = _library(dev)
+    status = _scan_status[dev.index]
     _check(lib.smt_tile_offsets(dev.index, counts.data_ptr(), ntiles, offsets.data_ptr(),
-                                status.data_ptr(), epoch, stream), "tile_offsets")
+                                status.data_ptr(), status.numel(),
+                                torch.cuda.current_stream(dev).cuda_stream), "tile_offsets")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES["tile_offsets"] += 1
     return offsets

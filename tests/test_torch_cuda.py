@@ -152,6 +152,34 @@ def test_tile_offsets_many_tiles(dev, ntiles):
     # counts that do not start on 16 bytes take the scalar loads
     buf = torch.randint(0, TILE + 1, (ntiles + 1,), dtype=torch.int32, device=dev, generator=g)
     assert torch.equal(fused.tile_offsets(buf[1:]), pipeline.tile_offsets_plain(buf[1:]))
+    # each launch leaves the card's tickets, counters and look-back words zeroed
+    torch.cuda.synchronize()
+    assert not fused._scan_status[counts.device.index].any()
+
+
+@pytest.mark.parametrize("ntiles", [1, 1025, 24_415])
+def test_tile_offsets_in_a_graph(dev, ntiles):
+    """Launches captured in a CUDA graph, each replay beside eager launches
+    on the same stream: every replay and every eager launch equal the plain
+    version (no memset of the status words, eager or in the graph)."""
+    g = torch.Generator(device=dev).manual_seed(ntiles)
+    counts = torch.randint(0, TILE + 1, (ntiles,), dtype=torch.int32, device=dev, generator=g)
+    want = pipeline.tile_offsets_plain(counts)
+    fused.tile_offsets(counts)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = [fused.tile_offsets(counts) for _ in range(3)]
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    for _ in range(4):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        eager = fused.tile_offsets(counts)
+        assert all(torch.equal(o, want) for o in outs) and torch.equal(eager, want)
+    torch.cuda.synchronize()
+    assert not fused._scan_status[counts.device.index].any()
 
 
 @pytest.mark.parametrize("canonical", [False, True])
@@ -982,15 +1010,20 @@ def test_routes_either_side_of_threshold(dev, side, canonical, monkeypatch):
 
 @pytest.mark.parametrize("slack", [0, 1, 2, 3, 8])
 @pytest.mark.parametrize("w", [3, 11, 33, 63])
-def test_stored_route_any_pass_count(dev, slack, w, monkeypatch):
+def test_stored_route_any_pass_count(dev, slack, w):
     """Every pass count from none (w loads per window) to the most (two
-    loads) gives the same result: the rule only trades passes for loads."""
-    monkeypatch.setattr(fused, "PASS_SLACK", slack)
+    loads), `slack` short of the most, gives the same result: the rule only
+    trades passes for loads."""
+    passes = max(0, w.bit_length() - 1 - slack)
     k = 21 if w % 2 else 22
     rng = np.random.default_rng(w + slack)
     n = 2 * TILE + 33 + k + w - 2
     codes = rng.integers(0, 4, n, dtype=np.uint8)
     for canonical in (False, True):
         h = NtHasher(k, canonical=canonical)
-        got, want = _both(codes, k, w, h, dev)
-        _assert_planes(got, want, _oracle(codes, k, w, h))
+        args, kw = _args(codes, k, w, h, dev)
+        scratch, counts = fused.minimizer_tiles(*args, **kw, passes=passes)
+        got = fused._fused_harvest((scratch, counts, fused.tile_offsets(counts)),
+                                   pipeline.MODE_MINIMIZERS)
+        want = pipeline.run_pipeline(*args, **kw)
+        _assert_planes(got.cpu().numpy(), want.cpu().numpy(), _oracle(codes, k, w, h))

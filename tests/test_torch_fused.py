@@ -141,6 +141,26 @@ def test_geometry_gate():
         assert -(-w // (1 << p)) <= 2 << fused.PASS_SLACK
 
 
+@pytest.mark.parametrize("w,passes,ok", [(11, 0, True), (11, 3, True), (11, 4, False),
+                                          (1, 0, True), (1, 1, False), (11, -1, False),
+                                          (9000, 0, False)])
+def test_pass_count_argument(w, passes, ok):
+    # the stored route's doubling passes: any 2^passes <= w, none on the
+    # large-w route (from LARGE_W_MIN); the plain version ignores them
+    k = 21
+    codes = np.random.default_rng(w).integers(0, 4, fused.TILE + k + w + 40, dtype=np.uint8)
+    chars = torch.from_numpy(pack_2bit(codes))
+    (kind, can, rot), tables = convert.hasher_tensors(smt.NtHasher(k), "cpu")
+    args = (chars, codes.size, k, w, tables, rot, can)
+    if not ok:
+        with pytest.raises(ValueError, match="passes"):
+            fused.minimizer_tiles(*args, passes=passes)
+        return
+    got = fused.minimizer_tiles(*args, passes=passes)
+    want = fused.minimizer_tiles(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("k,w", [(200_001, 11), (21, 61_441)])
 def test_beyond_gate_raises_on_cpu(k, w):
     words = torch.zeros(1 << 16, dtype=torch.uint8)
