@@ -33,6 +33,16 @@ and upload of the 2-bit inputs that are not zero-copy (an `AsciiSeq` and
 a `PackedSeq` slice from base 1, 1e8 bases), and the bus alone (256 MiB
 each way, through pageable and pinned host memory).
 
+Then k-mer values of the 1e8 bases through `Output` after `Builder.run` on
+the card (the kmer_values kernel, csrc/values.cu): values_u64 of canonical
+and forward minimizers at k=21, values_u128_limbs of canonical k=33 and
+forward k=64 minimizers, each a main path that launches the kernel once;
+the kernel against its plain version at the same shapes (bit-equal), the
+entry point against the kernel's limbs and the host (the native extractor
+on 1e6 positions, NumPy's u128 limbs on 1e5), the kernel's time and bound,
+the warm wall of the entry point, and beside it the native extractor on
+every position and NumPy's gather on 1e6 positions, scaled.
+
 Then the paths of whole genomes and read batches, each checked, timed
 (CUDA events for the kernels, wall time for the entry) and measured for
 peak device memory:
@@ -54,16 +64,23 @@ peak device memory:
   summed kernel path, the download, eager against wave scheduling, the
   wall split into stages (utils/profiling.split_wall); then
   chr21 and chr22 written as a FASTA (60-char lines, N runs, lowercase
-  stretches) through `python -m simd_minimizers_tpu_torch.sketch_fasta`,
-  whose .npz must equal `sketch_records` on the parsed records, with its
-  stage times and the start of a process that only imports the package;
+  stretches) through `python -m simd_minimizers_tpu_torch.sketch_fasta
+  --values`, whose .npz must equal `sketch_records` on the parsed records
+  and the native extractor's values, with its stage times and the start of
+  a process that only imports the package; the CLI's values step on the
+  card (kmer_values on code bytes) as a main path, and the kernel on
+  chr21's code bytes against its plain version;
 - `Builder.run_batch` of 1,000,000 random 150 bp reads (canonical
   minimizers) and of 20,000 reads of 100-10,000 bp (forward minimizers with
   a 1% mask; canonical super-k-mers, whose launches run the super-k-mer
   instance with the batch's padding plane): bit-equal to the plain version
   of the same launches on the card and, for 10,000 reads, to the oracle;
   each run's wall split into stages, and each kernel against its plain
-  version on its widest launch, bounded over the windows its reads own.
+  version on its widest launch, bounded over the windows its reads own;
+- Builder.run(device="cpu") of the 1e8 bases in a process of its own, on
+  the bounded CPU route (spans of 2^24 windows, ops/chunked.py) and as one
+  launch of the plain version: wall and peak RSS of each, both equal to
+  the card's positions.
 Then the paths of the last slices:
 - the stored route of minimizer_tiles (conflict-free keys, doubling
   passes) at w = 1..63 in four modes (minimizers, super-k-mers, closed
@@ -92,8 +109,8 @@ Then the paths of the last slices:
   ["cuda:0"] * 4 in every mode family (one with the N mask), each
   bit-equal to `Builder.run`; `multihost_sketch` under an NCCL group of one
   process and `_allgather_ragged_planes` of two planes over it.
-Every one of the 12 `minimizer_tiles` instances must have run on a main
-path. Last, it holds every 1e8 path's builder against the NumPy oracle at
+Every one of the 12 `minimizer_tiles` instances and kmer_values must have
+run on a main path. Last, it holds every 1e8 path's builder against the NumPy oracle at
 1e6 chars with a mask of the same shape, and the minimizer builders on the
 golden vectors. Every failed check raises, and the script exits non-zero;
 without CUDA it exits non-zero before printing any result.
@@ -298,15 +315,22 @@ class _Kernels:
     def __init__(self):
         from simd_minimizers_tpu_torch.ops import fused
 
+        from simd_minimizers_tpu_torch.ops import device_values
+
         self.entries = {}
-        self.launches_total = dict.fromkeys(fused.LAUNCHES, 0)
+        self.launches_total = dict.fromkeys([*fused.LAUNCHES, *device_values.LAUNCHES], 0)
         self.launches_by_entry = {}
 
-    def entry(self, name, source_line, err, kt, pt, bound, library=None, extra=None):
+    def entry(self, name, source_line, err, kt, pt, bound, library=None, extra=None,
+              source="minimizers.cu"):
+        """Record a kernel's numbers; `source_line` is a line of the JAX
+        package's ops/fused.py, or "file:line" of what the kernel replaces."""
+        replaces = (source_line if isinstance(source_line, str)
+                    else f"simd_minimizers_tpu/ops/fused.py:{source_line}")
         e = self.entries.setdefault(name, {
             "name": name, "route": "cuda",
-            "source": "simd_minimizers_tpu_torch/csrc/minimizers.cu",
-            "replaces": f"simd_minimizers_tpu/ops/fused.py:{source_line}",
+            "source": f"simd_minimizers_tpu_torch/csrc/{source}",
+            "replaces": replaces,
             "launches": 0, "max_abs_err": 0, "ms": kt[0], "plain_ms": pt[0],
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": None if library is None else library[0], **(extra or {})})
@@ -342,10 +366,12 @@ def _main_path(fn):
     path: the counts are set to 0 just before it and read just after."""
     import torch
 
-    from simd_minimizers_tpu_torch.ops import fused
+    from simd_minimizers_tpu_torch.ops import device_values, fused
 
-    for key in fused.LAUNCHES:
-        fused.LAUNCHES[key] = 0
+    counters = (fused.LAUNCHES, device_values.LAUNCHES)
+    for counter in counters:
+        for key in counter:
+            counter[key] = 0
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -353,7 +379,7 @@ def _main_path(fn):
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launched = {key: c for key, c in fused.LAUNCHES.items() if c}
+    launched = {key: c for counter in counters for key, c in counter.items() if c}
     return out, wall, launched, (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
@@ -417,6 +443,133 @@ def _oracle_planes(b, codes, mask=None):
     out = b.run_scalar(smt.PackedSeqVec.from_codes(codes), ambiguous=mask)
     return (out.positions,) if out.superkmer_indices is None else (
         out.positions, out.superkmer_indices)
+
+
+VALUES_REPLACES = "simd_minimizers_tpu/ops/device_values.py:126"  # values_limbs_jnp
+N_NUMPY_VALUES = 10**6  # positions of the NumPy gather's timed slice
+N_HOST_LIMBS = 10**5  # positions of the host u128 limbs held against the card's
+
+
+def _values_ops_per_position(k: int, canonical: bool) -> int:
+    """Integer operations per position that the values function needs at
+    least: the word index and shift (2), a funnel shift per limb and the top
+    limb's mask; canonical, per limb the complement, the reversal of the
+    2-bit groups (a bit reversal and a pair swap, 6), the realigning shift,
+    the compare and select (3), and the complement's mask. Loads are not
+    operations."""
+    from simd_minimizers_tpu_torch.ops.device_values import limb_count
+
+    L = limb_count(k)
+    return 2 + L + 1 + ((1 + 6 + 1 + 3) * L + 1 if canonical else 0)
+
+
+def _values_entry(rec, name, chars, pos_t, k, canonical, byte_codes=False):
+    """kmer_values against its plain version on the card at a main path's
+    shapes, timed and recorded as `name`; returns the kernel's limbs."""
+    from simd_minimizers_tpu_torch.ops import device_values
+
+    args = (chars, pos_t, k, canonical, byte_codes)
+    got = device_values.kmer_values_limbs(*args)
+    err = _max_abs_err(got, device_values.kmer_values_limbs_plain(*args))
+    m = pos_t.numel()
+    rec.entry(name, VALUES_REPLACES, err,
+              _median_ms(lambda: device_values.kmer_values_limbs(*args), 5, 10, 2),
+              _median_ms(lambda: device_values.kmer_values_limbs_plain(*args), 3, 3, 1),
+              _bound(chars.numel() + 4 * m + 4 * m * device_values.limb_count(k),
+                     m * _values_ops_per_position(k, canonical)), source="values.cu")
+    return got
+
+
+def _values(ctx):
+    """k-mer values of the 1e8 bases through Output after Builder.run on the
+    card: values_u64 of canonical and forward minimizers at k=21 w=11,
+    values_u128_limbs of canonical k=33 and forward k=64 minimizers (w=11).
+    Each main path launches kmer_values once; the kernel against its plain
+    version at the same shapes, the entry point's result against the
+    kernel's limbs and the host (the native extractor on 1e6 positions for
+    u64, NumPy's limbs on 1e5 for u128), the kernel's time and bound, the
+    warm wall of the entry point, and beside it the native extractor on
+    every position and NumPy's gather on 1e6 positions, scaled."""
+    import numpy as np
+    import torch
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert, native
+    from simd_minimizers_tpu_torch.ops import values
+
+    dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
+    seq = ctx["inputs"]["dna"][0]
+    codes = seq.codes()
+    chars = convert.packed_words(seq, dev)
+    cases = (("kmer_values", smt.canonical_minimizers(K, W), "values_u64"),
+             ("kmer_values [forward]", smt.minimizers(K, W), "values_u64"),
+             ("kmer_values [canonical, k=33, u128 limbs]", smt.canonical_minimizers(33, W),
+              "values_u128_limbs"),
+             ("kmer_values [forward, k=64, u128 limbs]", smt.minimizers(64, W),
+              "values_u128_limbs"))
+    for name, b, method in cases:
+        k, canonical = b.k, b.canonical
+        out = b.run(seq, device=dev)
+        pos = out.positions
+        m = pos.size
+        print(f"values: {name}, Output.{method}() after Builder.run on the card, {m} positions:")
+        res, wall, launched, peak = _main_path(lambda: getattr(out, method)())
+        print(f"  main path launches: {launched}")
+        if launched != {"kmer_values": 1}:
+            raise RuntimeError(f"{name}: the main path launched {launched}")
+        rec.tally(launched, "kmer_values", name[len("kmer_values"):])
+        pos_t = torch.from_numpy(pos.view(np.int32)).to(dev)
+        limbs = _values_entry(rec, name, chars, pos_t, k, canonical).cpu().numpy().view(np.uint32)
+        words = np.concatenate([limbs, np.zeros((m, limbs.shape[1] % 2), np.uint32)],
+                               axis=1).view("<u8")  # rows of (lo, hi) u64
+        if method == "values_u64":
+            if not np.array_equal(res, words[:, 0]):
+                raise RuntimeError(f"{name}: Output.values_u64 differs from the kernel's limbs")
+            host = native.kmer_values_u64(codes, pos[:N_NUMPY_VALUES], k, canonical)
+            if not np.array_equal(res[:N_NUMPY_VALUES], host):
+                raise RuntimeError(f"{name}: the card differs from the native extractor")
+            checked = f"{N_NUMPY_VALUES} positions bit-equal to the native extractor"
+        else:
+            hi = words[:, 1] if words.shape[1] > 1 else np.zeros(m, np.uint64)
+            if not (np.array_equal(res[0], words[:, 0]) and np.array_equal(res[1], hi)):
+                raise RuntimeError(f"{name}: Output.values_u128_limbs differs from the kernel")
+            fn = (values.canonical_kmer_values_u128_limbs if canonical
+                  else values.kmer_values_u128_limbs)
+            host = fn(codes, pos[:N_HOST_LIMBS], k)
+            if not all(np.array_equal(r[:N_HOST_LIMBS], h) for r, h in zip(res, host)):
+                raise RuntimeError(f"{name}: the card differs from the host's u128 limbs")
+            checked = f"{N_HOST_LIMBS} positions bit-equal to the host's NumPy limbs"
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            getattr(out, method)()
+            walls.append((time.perf_counter() - t) * 1e3)
+        line = (f"  {checked}; main path call {wall * 1e3:.2f} ms, peak extra device memory "
+                f"{peak:.1f} MiB; warm Output.{method}() 3 runs {min(walls):.2f}.."
+                f"{max(walls):.2f} ms")
+        if method == "values_u64":
+            t = time.perf_counter()
+            native.kmer_values_u64(codes, pos, k, canonical)
+            t_native = time.perf_counter() - t
+            part = pos[:N_NUMPY_VALUES]
+
+            def gather():  # NumPy's (m, k) gather, the host's path for text values
+                fwd = values._chunked(
+                    lambda p: values._pack_u64(values._gather_windows(codes, p, k), 2), part)
+                return (np.minimum(fwd, values.revcomp_kmer_values_u64(codes, part, k))
+                        if canonical else fwd)
+
+            t = time.perf_counter()
+            if not np.array_equal(gather(), res[:N_NUMPY_VALUES]):
+                raise RuntimeError(f"{name}: NumPy's gather differs from the card")
+            t_numpy = time.perf_counter() - t
+            line += (f"; host: native extractor {t_native * 1e3:.1f} ms "
+                     f"({t_native * 1e9 / m:.1f} ns/value), NumPy gather {t_numpy * 1e3:.1f} ms"
+                     f" on {N_NUMPY_VALUES} positions ({t_numpy * 1e9 / N_NUMPY_VALUES:.1f} "
+                     f"ns/value; {t_numpy * m / N_NUMPY_VALUES:.2f} s scaled to {m})")
+        print(line + f"; {note}")
+        del out, res, pos_t
 
 
 def _bus(ctx):
@@ -745,8 +898,12 @@ def _split_print(what, fn):
 
 def _fasta(ctx, names, codes, masks, out):
     """chr21 and chr22 as a FASTA (60-char lines, N runs, lowercase
-    stretches) through `python -m simd_minimizers_tpu_torch.sketch_fasta`;
-    its .npz must equal sketch_records on the parsed records."""
+    stretches) through `python -m simd_minimizers_tpu_torch.sketch_fasta
+    --values`; its .npz must equal sketch_records on the parsed records and
+    the native extractor's values. Then the CLI's values step
+    (`sketch_fasta.record_values`: kmer_values on the records' code bytes)
+    as a main path, and the kernel on chr21's code bytes against its plain
+    version."""
     import os
     import shutil
     import subprocess
@@ -756,6 +913,7 @@ def _fasta(ctx, names, codes, masks, out):
     import torch
 
     import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert, native, sketch_fasta
     from simd_minimizers_tpu_torch.ops import backend, pipeline
     from simd_minimizers_tpu_torch.seq.fasta import read_fasta
 
@@ -786,7 +944,7 @@ def _fasta(ctx, names, codes, masks, out):
         t = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "simd_minimizers_tpu_torch.sketch_fasta",
                               path, "--k", str(K), "--w", str(W), "--canonical",
-                              "--skip-ambiguous", "--out", npz, "--device",
+                              "--skip-ambiguous", "--values", "--out", npz, "--device",
                               ctx["dev"].type],
                              cwd=root, capture_output=True, text=True, timeout=600)
         cli = time.perf_counter() - t
@@ -814,13 +972,36 @@ def _fasta(ctx, names, codes, masks, out):
                                       smt.NtHasher(K, canonical=True), pipeline.MODE_MINIMIZERS,
                                       [r.ambiguous for r in recs], dna=True, device=ctx["dev"])
         got = np.load(npz)
-        if sorted(got.files) != ["chr21/positions", "chr22/positions"] or not all(
+        files = sorted(f"{r.name}/{part}" for r in recs for part in ("positions", "values"))
+        if sorted(got.files) != files or not all(
                 np.array_equal(got[f"{r.name}/positions"], p) for r, p in zip(recs, want)):
             raise RuntimeError("FASTA: the CLI's .npz differs from sketch_records")
         if not all(np.array_equal(p, out[i]) for p, i in zip(want, pick)):
             raise RuntimeError("FASTA: the parsed records sketch differently from the codes")
+        t = time.perf_counter()
+        host = [native.kmer_values_u64(r.codes, p, K, True) for r, p in zip(recs, want)]
+        t_host = time.perf_counter() - t
+        if not all(np.array_equal(got[f"{r.name}/values"], v) for r, v in zip(recs, host)):
+            raise RuntimeError("FASTA: the CLI's values differ from the native extractor")
         print(f"  parse {parse:.3f} s ({bp / parse / 1e9:.3f} Gbp/s); the .npz equals "
-              "sketch_records on the parsed records and on the written codes")
+              "sketch_records on the parsed records and on the written codes, its values the "
+              f"native extractor's ({t_host:.3f} s for {sum(p.size for p in want)} values)")
+        vals, wall, launched, _ = _main_path(lambda: [
+            sketch_fasta.record_values(r.codes, p, K, True, ctx["dev"])
+            for r, p in zip(recs, want)])
+        print(f"  the CLI's values step on the card: main path launches {launched}, wall "
+              f"{wall * 1e3:.1f} ms")
+        if launched != {"kmer_values": len(recs)}:
+            raise RuntimeError(f"FASTA: the values step launched {launched}")
+        if not all(np.array_equal(v, h) for v, h in zip(vals, host)):
+            raise RuntimeError("FASTA: the values step differs from the native extractor")
+        variant = " [code bytes]"
+        ctx["rec"].tally(launched, "kmer_values", variant)
+        chars = convert.code_bytes(recs[0].codes, ctx["dev"])
+        pos_t = torch.from_numpy(want[0].view(np.int32)).to(ctx["dev"])
+        _values_entry(ctx["rec"], "kmer_values" + variant, chars, pos_t, K, True,
+                      byte_codes=True)
+        del chars, pos_t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -895,6 +1076,85 @@ def _read_batches(ctx):
                      plain_reps=(2, 1, 0),
                      windows=sum(max(len(codes[i]) - l + 1, 0) for i in widest[0]))
         del items, plain, got
+
+
+# One Builder.run of the 1e8 bases on the CPU, in a process of its own:
+# argv seed, n, k, w, and "chunked" (the route a CPU tensor takes) or
+# "whole" (one launch of the plain version); prints its wall, its resident
+# memory before the run (/proc/self/statm), its peak (resource.getrusage's
+# ru_maxrss, and the largest of statm read every 5 ms during the run), and
+# a digest of the positions.
+CPU_ROUTE_SCRIPT = """
+import hashlib, json, resource, sys, threading, time
+sys.modules["jax"] = None
+sys.modules["simd_minimizers_tpu"] = None
+import numpy as np
+import simd_minimizers_tpu_torch as smt
+from simd_minimizers_tpu_torch.ops import chunked
+def rss_mib():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize() / 2**20
+seed, n, k, w = map(int, sys.argv[1:5])
+if sys.argv[5] == "whole":
+    chunked.PIPELINE_CHUNK_WINDOWS = 1 << 40
+seq = smt.PackedSeqVec.random(n, np.random.default_rng(seed))
+before = rss_mib()
+sampled, done = [before], threading.Event()
+def sample():
+    while not done.wait(0.005):
+        sampled.append(rss_mib())
+sampler = threading.Thread(target=sample)
+sampler.start()
+t = time.perf_counter()
+out = smt.canonical_minimizers(k, w).run(seq, device="cpu")
+wall = time.perf_counter() - t
+done.set()
+sampler.join()
+print(json.dumps({"wall_s": wall, "rss_before_mib": before,
+                  "ru_maxrss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
+                  "sampled_peak_mib": max(sampled), "count": int(out.positions.size),
+                  "sha256": hashlib.sha256(out.positions.tobytes()).hexdigest()}))
+"""
+# Starts its arguments as a process of its own. A process that exec's keeps
+# the peak resident size of the process it was forked from as its
+# ru_maxrss: started from this small one, the measured process reports its
+# own peak, not this script's many GiB.
+LAUNCHER = "import subprocess, sys; sys.exit(subprocess.run(sys.argv[1:]).returncode)"
+
+
+def _cpu_route(ctx):
+    """Builder.run(device="cpu") of the 1e8 bases (canonical k=21 w=11) in
+    a process of its own, on the bounded route (spans of
+    PIPELINE_CHUNK_WINDOWS windows) and as one launch of the plain version:
+    wall time and peak RSS of each, the same positions as the card's."""
+    import hashlib
+    import json
+    import os
+    import subprocess
+
+    import simd_minimizers_tpu_torch as smt
+
+    seq = ctx["inputs"]["dna"][0]
+    card = smt.canonical_minimizers(K, W).run(seq, device=ctx["dev"]).positions
+    digest = hashlib.sha256(card.tobytes()).hexdigest()
+    root = os.path.dirname(os.path.abspath(__file__))
+    for route in ("chunked", "whole"):
+        res = subprocess.run([sys.executable, "-c", LAUNCHER, sys.executable, "-c",
+                              CPU_ROUTE_SCRIPT, str(ctx["seed"]), str(N), str(K), str(W), route],
+                             cwd=root, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"CPU route ({route}) failed ({res.returncode}):\n{res.stderr}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        before = got["rss_before_mib"]
+        print(f"CPU route, {route}: Builder.run(device='cpu') of {N} bases, canonical k={K} "
+              f"w={W}: wall {got['wall_s']:.2f} s; resident {before:.0f} MiB before, peak "
+              f"{got['ru_maxrss_mib']:.0f} MiB by getrusage (extra "
+              f"{got['ru_maxrss_mib'] - before:.0f} MiB), {got['sampled_peak_mib']:.0f} MiB "
+              f"sampled (extra {got['sampled_peak_mib'] - before:.0f} MiB); {got['count']} "
+              f"positions, equal to the card's: {got['sha256'] == digest}; host of "
+              f"{ctx['card_note']}")
+        if got["sha256"] != digest or got["count"] != card.size:
+            raise RuntimeError(f"CPU route ({route}): positions differ from the card's")
 
 
 N_LARGE_CHECK = 10**7  # chars at which the large-w launches are held against the plain version
@@ -1564,9 +1824,12 @@ def main() -> int:
               f"{min(ts):.2f}..{max(ts):.2f} ms; {card_note}")
     del ascii_in
 
-    # -- the paths of whole genomes and read batches ----------------------
+    # -- k-mer values, then the paths of whole genomes and read batches ----
     ctx = {"dev": dev, "rec": rec, "card_note": card_note, "seed": args.seed,
            "inputs": inputs}
+    t = time.perf_counter()
+    _values(ctx)
+    print(f"  (values: {time.perf_counter() - t:.1f} s)")
     _bus(ctx)
     _long_sequence(ctx)
     _long_sweep(ctx, chars_dev["dna"], planes_dev["dna"])
@@ -1574,6 +1837,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     _genome(ctx)
     _read_batches(ctx)
+    t = time.perf_counter()
+    _cpu_route(ctx)
+    print(f"  (cpu_route: {time.perf_counter() - t:.1f} s)")
 
     # -- the stored route, large w, short sequences, sharded --------------
     for phase in (_stored_sweep, _crossover, _large_w, _short_sequences, _sharded):

@@ -27,7 +27,7 @@ import torch
 
 from . import convert
 from .hashers import KmerHasher, NtHasher
-from .ops import backend, fused, oracle, pipeline, values
+from .ops import backend, device_values, fused, oracle, pipeline, values
 from .seq.packed import (_ASCII_TO_CODE, _IS_ACGT, AsciiSeq, GenericSeq, PackedNSeqVec,
                          PackedSeq, as_seq)
 from .utils.profiling import stage
@@ -40,8 +40,18 @@ class Output:
     """Result of a builder run (the `Output` equivalent).
 
     `length` is k for minimizers and k+w-1 for syncmers (the crate's
-    src/lib.rs:439-447). k-mer values are assembled on the host (device
-    values are ROADMAP A6).
+    src/lib.rs:439-447).
+
+    k-mer values of 2-bit sequences are computed where the positions were:
+    after a run on a CUDA device `values_u64`, `values_u128_limbs` and
+    `values_u128` launch the `kmer_values` kernel on that card
+    (`ops/device_values.py`, at every m) and bring the limbs back through
+    pinned memory; after a CPU run or `run_scalar` they are the host's (the
+    native extractor for u64, NumPy for u128). Text stays on the host. The
+    JAX package picks the device by a probe of the link instead; at the
+    card's pinned bus (53-55 GB/s down, PERF.md section 5) the download
+    costs about 0.15 ns a value against the host's tens of ns, so such a
+    probe could only pick the card. Both routes are bit-equal.
     """
 
     length: int
@@ -49,6 +59,7 @@ class Output:
     positions: np.ndarray
     superkmer_indices: np.ndarray | None = None
     canonical: bool = False
+    _device: torch.device | None = dataclasses.field(default=None, repr=False)
 
     def _codes(self) -> np.ndarray:
         return self.seq.codes()
@@ -58,16 +69,34 @@ class Output:
         # 2 bits/char for DNA, 8 for general text (GenericSeq)
         return getattr(self.seq, "char_bits", 2)
 
+    def _on_card(self, max_length: int) -> bool:
+        """Whether values of at most max_length chars come from the card."""
+        return (self._device is not None and self._device.type == "cuda"
+                and self._bits == 2 and self.length <= max_length)
+
+    def _card_values(self, fn):
+        """fn (a driver of ops/device_values) on the run's card: the sequence
+        uploaded as convert.packed_words uploads it, the positions from the
+        host arrays the run returned."""
+        return fn(convert.packed_words(self.seq, self._device), self.positions, self.length,
+                  canonical=self.canonical)
+
     def values_u64(self) -> np.ndarray:
+        if self._on_card(32):
+            return self._card_values(device_values.kmer_values_u64)
         fn = values.canonical_kmer_values_u64 if self.canonical else values.kmer_values_u64
         return fn(self._codes(), self.positions, self.length, self._bits)
 
     def values_u128(self) -> list[int]:
+        if self._on_card(64):
+            return values.limbs_to_ints(*self._card_values(device_values.kmer_values_u128_limbs))
         fn = values.canonical_kmer_values_u128 if self.canonical else values.kmer_values_u128
         return fn(self._codes(), self.positions, self.length, self._bits)
 
     def values_u128_limbs(self) -> tuple[np.ndarray, np.ndarray]:
         """(lo, hi) u64 limb arrays — vectorized u128s for sketch-scale use."""
+        if self._on_card(64):
+            return self._card_values(device_values.kmer_values_u128_limbs)
         fn = (values.canonical_kmer_values_u128_limbs if self.canonical
               else values.kmer_values_u128_limbs)
         return fn(self._codes(), self.positions, self.length, self._bits)
@@ -144,9 +173,10 @@ class Builder:
         res = backend.sketch(chars, n, self.k, self.w, self._resolved_hasher(), mode, amb, text)
         if mode == pipeline.MODE_SUPERKMERS:
             pos, idx = convert.Download(res).result()
-            return Output(self._out_length, seq, pos, idx, canonical=self.canonical)
+            return Output(self._out_length, seq, pos, idx, self.canonical, chars.device)
         positions = convert.Download(res).result()
-        return Output(self._out_length, seq, positions, canonical=self.canonical)
+        return Output(self._out_length, seq, positions, canonical=self.canonical,
+                      _device=chars.device)
 
     def run_scalar(self, seq, ambiguous: np.ndarray | None = None) -> Output:
         """NumPy-oracle run (the reference's scalar path; for testing)."""

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of `csrc/` on first use.
 
-`nvcc` compiles the sources into a shared library with a plain C
+One `nvcc` a source, all started together, compiles the sources into
+objects, and one more links them into a shared library with a plain C
 interface, loaded with ctypes. `--split-compile=0` lets it optimise the
 kernel instances on all host cores at once: one translation unit with
 every minimizer_tiles instance builds in about 4 s instead of 8 s on the
@@ -22,10 +23,11 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "minimizers.cu",)
+SOURCES = (CSRC / "minimizers.cu", CSRC / "values.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,11 +39,22 @@ _SIGNATURES = {
                              _I, ctypes.c_uint, _P, _I, _I, _P, _P, _I, _P], _I),
     "smt_tile_offsets": ([_I, _P, _I, _P, _P, _LL, _P], _I),
     "smt_tile_append": ([_I, _P, _P, _P, _I, _I, _P, _P], _I),
+    "smt_kmer_values": ([_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _P], _I),
 }
 
 _lib = None
 build_seconds = None  # wall time of the build (or load) that produced _lib
 build_log = ""  # nvcc's output (-Xptxas -v: registers, shared memory, spills)
+
+
+def _run(procs) -> str:
+    """Wait for every (what, Popen) and return their output; raise for the
+    first that failed."""
+    outs = [(what, p.communicate()[0], p.returncode) for what, p in procs]
+    for what, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {what} ({rc}):\n{out}")
+    return "".join(out for _, out, _ in outs)
 
 
 def _nvcc() -> str:
@@ -63,12 +76,19 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libsmt_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-                             capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+        try:
+            build_log = _run([(src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)) for src, obj in zip(SOURCES, objs)])
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            build_log += _run([("the link", subprocess.Popen(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():

@@ -17,7 +17,7 @@ import torch
 from .. import convert
 from ..hashers import KmerHasher
 from ..utils.profiling import stage
-from . import batch, fused, pipeline
+from . import batch, chunked, fused, pipeline
 
 # sequences of this many chars or more stream through spans (fused.sketch_long)
 LONG_SEQUENCE_CHARS = 1 << 30
@@ -57,9 +57,14 @@ def sketch(chars: torch.Tensor, n: int, k: int, w: int, hasher: KmerHasher,
     convert.packed_words, or with `text` the bytes of convert.text_bytes;
     skipping the windows that hold a char flagged in the 1-bit plane
     `ambiguous` (convert.ambiguity_plane); for super-k-mers (positions,
-    first-window indices), with or without a plane. Sequences of 2^30 chars
-    or more stream through `fused.sketch_long` in 2^29-char spans."""
+    first-window indices), with or without a plane. On a CUDA tensor,
+    sequences of 2^30 chars or more stream through `fused.sketch_long` in
+    2^29-char spans; on a CPU tensor, sequences of more than
+    chunked.PIPELINE_CHUNK_WINDOWS windows stream in spans of that many
+    windows (`chunked.sketch`), which bounds the plain version's memory."""
     _check_parameters(k, w, hasher, mode)
+    if chars.device.type == "cpu" and n - (k + w - 1) + 1 > chunked.PIPELINE_CHUNK_WINDOWS:
+        return chunked.sketch(chars, n, k, w, hasher, mode, ambiguous, text=text)
     if n >= LONG_SEQUENCE_CHARS:
         return fused.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
     (kind, canonical, rot_offset), tables = convert.hasher_tensors(hasher, chars.device, text)

@@ -568,7 +568,9 @@ def sketch_records(records, k: int, w: int, hasher, mode: str = pipeline.MODE_MI
     record), with the per-record masks `ambiguous` (None entries allowed).
 
     Each record is uploaded once as bytes and cut into spans like
-    `sketch_long`; the launches of all records go through one
+    `sketch_long` (on the CPU spans of at most
+    chunked.PIPELINE_CHUNK_WINDOWS windows, which bound the plain version's
+    memory: ops/chunked.py); the launches of all records go through one
     `_LaunchWave` of `wave_bytes` (default 4 GiB, the JAX package's
     SMTPU_RECORDS_WAVE_BYTES), and each harvested span comes down through
     pinned host memory on a side stream while the next launches run.
@@ -586,6 +588,10 @@ def sketch_records_checked(records, k: int, w: int, hasher, mode: str, masks: li
     l = k + w - 1
     nrec = len(records)
     device = require_cuda(device)
+    if device.type == "cpu":
+        from . import chunked  # chunked imports this module
+
+        span_chars = min(span_chars, chunked.span_chars(l))
     copies = torch.cuda.Stream(device) if device.type == "cuda" else None
     rec_parts = [[] for _ in range(nrec)]
     wave = _LaunchWave(mode, lambda ri, res: rec_parts[ri].append(convert.Download(res, copies)),

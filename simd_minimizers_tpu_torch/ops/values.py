@@ -1,19 +1,27 @@
-"""Vectorized kmer-value extraction (the `Output::values_*` equivalents).
+"""Vectorized kmer-value extraction on the host (the `Output::values_*`
+equivalents).
 
-The port's own copy of `simd_minimizers_tpu/ops/values.py`, in NumPy only
-(the JAX package sends 2-bit u64 values to its native C++ extractor; the
-results are the same). Value convention pinned by the reference doc-test
-(the crate's src/lib.rs:117-129): first base in the lowest bits, 2 bits per
-char for DNA; general text (`&[u8]`) packs 8 bits per char. Canonical
-values are min(fwd, revcomp) (the crate's src/lib.rs:598-612); the
-complement of a code is ``c ^ 2`` (in the 2-bit space for DNA; applied to
-the raw byte for text, as canonical hashing does). u128 values are (lo, hi)
-u64 limb arrays, with Python-int lists built only on explicit request.
+The port's own copy of `simd_minimizers_tpu/ops/values.py`. Value
+convention pinned by the reference doc-test (the crate's src/lib.rs:117-129):
+first base in the lowest bits, 2 bits per char for DNA; general text
+(`&[u8]`) packs 8 bits per char. Canonical values are min(fwd, revcomp)
+(the crate's src/lib.rs:598-612); the complement of a code is ``c ^ 2`` (in
+the 2-bit space for DNA; applied to the raw byte for text, as canonical
+hashing does).
+
+2-bit u64 values, forward and canonical, go to the port's native C++
+extractor (`native/`, as the JAX package sends them to its own): one pass
+per position instead of an (m, k) index-matrix build. Text and u128 values
+stay in vectorized NumPy, materialized as (lo, hi) u64 limb arrays, with
+Python-int lists built only on explicit request. Values on the card are
+`ops/device_values.py`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 # positions are processed in blocks so the (m, length) gather matrix stays
 # bounded (~VALUE_CHUNK * 64 bytes) even at genome scale
@@ -47,6 +55,8 @@ def kmer_values_u64(codes: np.ndarray, positions: np.ndarray, length: int,
     assert bits * length <= 64, f"values_u64 requires {bits}*length <= 64"
     if positions.size == 0:
         return np.zeros(0, dtype=np.uint64)
+    if bits == 2:
+        return native.kmer_values_u64(codes, positions, length, canonical=False)
     return _chunked(
         lambda p: _pack_u64(_gather_windows(codes, p, length), bits), positions)
 
@@ -63,6 +73,8 @@ def revcomp_kmer_values_u64(codes: np.ndarray, positions: np.ndarray, length: in
 
 def canonical_kmer_values_u64(codes: np.ndarray, positions: np.ndarray, length: int,
                               bits: int = 2) -> np.ndarray:
+    if bits == 2 and positions.size:
+        return native.kmer_values_u64(codes, positions, length, canonical=True)
     return np.minimum(
         kmer_values_u64(codes, positions, length, bits),
         revcomp_kmer_values_u64(codes, positions, length, bits),
@@ -108,18 +120,18 @@ def canonical_kmer_values_u128_limbs(
     return np.where(take_r, rlo, flo), np.where(take_r, rhi, fhi)
 
 
-def _limbs_to_ints(lo: np.ndarray, hi: np.ndarray) -> list[int]:
+def limbs_to_ints(lo: np.ndarray, hi: np.ndarray) -> list[int]:
     # object-array arithmetic: elementwise in C, no Python-level loop
     return ((hi.astype(object) << 64) | lo.astype(object)).tolist()
 
 
 def kmer_values_u128(codes: np.ndarray, positions: np.ndarray, length: int,
                      bits: int = 2) -> list[int]:
-    return _limbs_to_ints(*kmer_values_u128_limbs(codes, positions, length, bits))
+    return limbs_to_ints(*kmer_values_u128_limbs(codes, positions, length, bits))
 
 
 def canonical_kmer_values_u128(codes: np.ndarray, positions: np.ndarray, length: int,
                                bits: int = 2) -> list[int]:
-    return _limbs_to_ints(
+    return limbs_to_ints(
         *canonical_kmer_values_u128_limbs(codes, positions, length, bits)
     )

@@ -9,9 +9,10 @@ its .npz layout: `<record>/positions` (np.uint32, window indices for
 syncmers) and, with --values for minimizers, `<record>/values` (u64 k-mer
 values). It parses the FASTA (`seq.fasta.read_fasta`), sketches every
 record through `ops.backend.sketch_records` on `--device` (the Hopper
-kernels on a CUDA card, their plain versions on the CPU), and prints the
-times of its stages to standard error: CUDA set-up and the kernel
-library's load (on a card), parse, sketch, values and the .npz write.
+kernels on a CUDA card, their plain versions on the CPU), computes the
+values where it sketched (`record_values`), and prints the times of its
+stages to standard error: CUDA set-up and the kernel library's load (on a
+card), parse, sketch, values and the .npz write.
 """
 
 from __future__ import annotations
@@ -21,6 +22,22 @@ import sys
 import time
 
 import numpy as np
+
+
+def record_values(codes: np.ndarray, positions: np.ndarray, k: int, canonical: bool,
+                  device) -> np.ndarray:
+    """u64 values of one record's k-mers at `positions`: on a CUDA device
+    the kmer_values kernel over the record's 2-bit codes uploaded one a byte
+    (ops/device_values.py), on the CPU the host's native extractor
+    (ops/values.py)."""
+    from . import convert
+    from .ops import device_values, values
+
+    if device.type == "cuda":
+        return device_values.kmer_values_u64(convert.code_bytes(codes, device), positions, k,
+                                             canonical, byte_codes=True)
+    fn = values.canonical_kmer_values_u64 if canonical else values.kmer_values_u64
+    return fn(codes, positions, k)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -40,7 +57,7 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     from .hashers import NtHasher
-    from .ops import _build, backend, pipeline, values
+    from .ops import _build, backend, pipeline
     from .seq.fasta import read_fasta
     from .utils.device import require_cuda
 
@@ -76,8 +93,8 @@ def main(argv: list[str] | None = None) -> int:
         out[f"{rec.name}/positions"] = pos
         total_pos += pos.size
         if args.values and mode == pipeline.MODE_MINIMIZERS:
-            fn = values.canonical_kmer_values_u64 if args.canonical else values.kmer_values_u64
-            out[f"{rec.name}/values"] = fn(rec.codes, pos, args.k)
+            out[f"{rec.name}/values"] = record_values(rec.codes, pos, args.k, args.canonical,
+                                                      device)
     t3 = time.perf_counter()
     log(f"sketched {total_pos} positions in {t2 - t1:.2f}s "
         f"({total_bp / max(t2 - t1, 1e-9) / 1e9:.2f} Gbp/s wall)"

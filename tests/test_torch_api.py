@@ -216,6 +216,8 @@ def test_imports_without_jax():
         "import torch\n"
         "import simd_minimizers_tpu_torch as smt\n"
         "from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline, _build\n"
+        "from simd_minimizers_tpu_torch.ops import chunked, device_values, values\n"
+        "from simd_minimizers_tpu_torch import native\n"
         "from simd_minimizers_tpu_torch.parallel import multihost, shard\n"
         "from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher\n"
         "from simd_minimizers_tpu_torch.seq import fasta\n"
@@ -234,6 +236,11 @@ def test_imports_without_jax():
         "assert list(smt.minimizer_positions(smt.AsciiSeq(b'ACGTGCTCAGAGACTCAG'), 5, 7,\n"
         "                                    device='cpu')) == [4, 5, 8, 13]\n"
         "assert smt.canonical_minimizers(5, 7).run(ps, device='cpu').values_u64()[0] == 721\n"
+        "chars = torch.from_numpy(ps.data)\n"
+        "assert device_values.kmer_values_u64(chars, [0], 5, canonical=True)[0] == 721\n"
+        "assert native.kmer_values_u64(ps.codes(), [0], 5, True)[0] == 721\n"
+        "assert chunked.sketch(torch.from_numpy(recs[0]), recs[0].size, 5, 7, smt.NtHasher(5),\n"
+        "                      byte_codes=True).tolist() == long.tolist()\n"
         "out = smt.canonical_minimizers(5, 7).super_kmers().run(ps, device='cpu')\n"
         "assert list(out.positions) == [0, 7, 9, 15] and out.superkmer_indices.size == 4\n"
         "nseq = smt.PackedNSeqVec.from_ascii(b'ACGTGCTCAGAGANTCAGAGGA')\n"

@@ -7,7 +7,10 @@ and both small kernels, around tile seams; and the drivers that run them:
 sketch_long across many seams, sketch_records (pinned downloads reused
 across waves) and the batch engine behind run_batch; the large-w route
 (both routes bit-equal, w up to 61,439), ShortSeqSketcher's captured
-graph, sharded sketching on one card and NCCL in a world of one. The port
+graph, sharded sketching on one card and NCCL in a world of one; the
+kmer_values kernel against its plain version and the host (positions past
+2^31 included) and Output's values after a card run, by the launch count.
+The port
 runs on its own classes; the independent reference is the JAX package's
 NumPy oracle with the JAX package's hashers (both import no JAX).
 
@@ -1027,3 +1030,132 @@ def test_stored_route_any_pass_count(dev, slack, w):
                                    pipeline.MODE_MINIMIZERS)
         want = pipeline.run_pipeline(*args, **kw)
         _assert_planes(got.cpu().numpy(), want.cpu().numpy(), _oracle(codes, k, w, h))
+
+
+# -- k-mer values on the card (csrc/values.cu) ------------------------------
+
+VALUE_KS = [1, 2, 5, 15, 16, 17, 21, 31, 32, 33, 48, 63, 64]
+
+
+@pytest.mark.parametrize("k", VALUE_KS)
+@pytest.mark.parametrize("canonical", [False, True])
+def test_kmer_values_vs_plain(dev, k, canonical):
+    """The kernel against its plain version on the card, on the 2-bit byte
+    stream (aligned and an unaligned view) and on code bytes, with the two
+    ends, a buffer one byte short of a whole word and m = 0; against the
+    host's values of the same codes."""
+    from simd_minimizers_tpu_torch.ops import device_values, values
+
+    rng = np.random.default_rng(k * 2 + canonical)
+    n = 5003
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    pos = np.sort(rng.integers(0, n - k + 1, 3000)).astype(np.uint32)
+    pos[[0, -1]] = (0, n - k)
+    pos_t = torch.from_numpy(pos.view(np.int32)).to(dev)
+    packed = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
+    unaligned = torch.cat([packed.new_zeros(1), packed])[1:]  # data_ptr not 4-aligned
+    host = (values.canonical_kmer_values_u128_limbs if canonical
+            else values.kmer_values_u128_limbs)(codes, pos, k)
+    for chars, byte_codes in ((packed, False), (unaligned, False),
+                              (convert.code_bytes(codes, dev), True)):
+        before = dict(device_values.LAUNCHES)
+        got = device_values.kmer_values_limbs(chars, pos_t, k, canonical, byte_codes)
+        assert device_values.LAUNCHES["kmer_values"] == before["kmer_values"] + 1
+        want = device_values.kmer_values_limbs_plain(chars, pos_t, k, canonical, byte_codes)
+        assert torch.equal(got, want)
+        lo, hi = device_values.kmer_values_u128_limbs(chars, pos, k, canonical, byte_codes)
+        np.testing.assert_array_equal(lo, host[0])
+        np.testing.assert_array_equal(hi, host[1])
+        empty = device_values.kmer_values_limbs(chars, pos_t[:0], k, canonical, byte_codes)
+        assert empty.shape == (0, device_values.limb_count(k))
+
+
+def test_kmer_values_past_2_31(dev):
+    """Positions at and past 2^31 on a 2^31 + 64-char sequence are u32:
+    the packed stream against its plain version and against code bytes,
+    and the last k-mers against the host."""
+    from simd_minimizers_tpu_torch import native
+    from simd_minimizers_tpu_torch.ops import device_values
+
+    n = (1 << 31) + 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    codes = torch.randint(0, 4, (n,), dtype=torch.uint8, device=dev, generator=g)
+    q = codes.view(-1, 4)
+    packed = q[:, 0] | q[:, 1] << 2 | q[:, 2] << 4 | q[:, 3] << 6
+    rng = np.random.default_rng(31)
+    for k in (21, 33, 64):
+        pos = np.concatenate([rng.integers(0, n - k + 1, 2000),
+                              rng.integers((1 << 31) - 100, n - k + 1, 2000),
+                              [0, (1 << 31) - 1, 1 << 31, n - k]]).astype(np.uint32)
+        pos_t = torch.from_numpy(pos.view(np.int32)).to(dev)
+        for canonical in (False, True):
+            got = device_values.kmer_values_limbs(packed, pos_t, k, canonical)
+            assert torch.equal(got, device_values.kmer_values_limbs_plain(packed, pos_t, k,
+                                                                          canonical))
+            assert torch.equal(got, device_values.kmer_values_limbs(codes, pos_t, k, canonical,
+                                                                    byte_codes=True))
+            if k <= 32:
+                base = (1 << 31) - 200
+                tail = codes[base:].cpu().numpy()
+                top = pos[pos >= base]
+                want = native.kmer_values_u64(tail, top - base, k, canonical)
+                vals = device_values.kmer_values_u64(packed, top, k, canonical)
+                np.testing.assert_array_equal(vals, want)
+    del codes, packed
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("k,w", [(5, 7), (21, 11), (33, 11), (64, 12)])
+def test_output_values_after_a_card_run(dev, k, w):
+    """After Builder.run on the card, values_u64 (k <= 32), values_u128_limbs
+    and values_u128 of DNA launch the kernel once each (the launch count),
+    and equal the host's values after a CPU run; text stays on the host."""
+    from simd_minimizers_tpu_torch.ops import device_values
+
+    rng = np.random.default_rng(k + w)
+    codes = rng.integers(0, 4, 3 * TILE + 1000, dtype=np.uint8)
+    for seq in (PackedSeqVec.from_codes(codes), PackedSeqVec.from_codes(codes).slice(3, 12_000)):
+        for b in (api.minimizers(k, w), api.canonical_minimizers(k, w),
+                  api.canonical_minimizers(k, w).super_kmers()):
+            out, host = b.run(seq, device=dev), b.run(seq, device="cpu")
+            np.testing.assert_array_equal(out.positions, host.positions)
+            calls = [out.values_u128_limbs, out.values_u128]
+            if k <= 32:
+                calls.append(out.values_u64)
+            for call in calls:
+                before = device_values.LAUNCHES["kmer_values"]
+                got = call()
+                assert device_values.LAUNCHES["kmer_values"] == before + 1
+                want = getattr(host, call.__name__)()
+                if isinstance(want, tuple):
+                    for g_, w_ in zip(got, want, strict=True):
+                        np.testing.assert_array_equal(g_, w_)
+                elif isinstance(want, list):
+                    assert got == want
+                else:
+                    np.testing.assert_array_equal(got, want)
+    text = rng.integers(32, 127, 5000, dtype=np.uint8)
+    b = api.minimizers(7, w).hasher(convert.hasher_from(MulHasher(7)))
+    out = b.run(text, device=dev)
+    before = device_values.LAUNCHES["kmer_values"]
+    np.testing.assert_array_equal(out.values_u64(), b.run(text, device="cpu").values_u64())
+    assert device_values.LAUNCHES["kmer_values"] == before
+
+
+def test_kmer_values_launch_failure_raises(dev, monkeypatch):
+    """A failed launch raises; nothing falls back to the plain version or
+    the host, and the launch is not counted."""
+    from simd_minimizers_tpu_torch.ops import _build, device_values
+
+    class Failing:
+        @staticmethod
+        def smt_kmer_values(*args):
+            return 1
+
+    chars = torch.zeros(64, dtype=torch.uint8, device=dev)
+    pos = torch.zeros(3, dtype=torch.int32, device=dev)
+    monkeypatch.setattr(_build, "library", lambda: Failing)
+    before = device_values.LAUNCHES["kmer_values"]
+    with pytest.raises(RuntimeError, match="kmer_values failed"):
+        device_values.kmer_values_limbs(chars, pos, 21, True)
+    assert device_values.LAUNCHES["kmer_values"] == before
