@@ -69,7 +69,10 @@ peak device memory:
   and the native extractor's values, with its stage times and the start of
   a process that only imports the package; the CLI's values step on the
   card (kmer_values on code bytes) as a main path, and the kernel on
-  chr21's code bytes against its plain version;
+  chr21's code bytes against its plain version; `read_fasta` of the CLI's
+  file and of the whole genome written as a FASTA (3.1 Gbp), each in a
+  process of its own through the NumPy scan and the native scan: wall and
+  peak RSS of each, every record as written;
 - `Builder.run_batch` of 1,000,000 random 150 bp reads (canonical
   minimizers) and of 20,000 reads of 100-10,000 bp (forward minimizers with
   a 1% mask; canonical super-k-mers, whose launches run the super-k-mer
@@ -98,8 +101,8 @@ Then the paths of the last slices:
   32,767, canonical super-k-mers and forward closed syncmers at 32,767,
   canonical at w = 21,721 and 21,723 (the two sides of the old shared-
   memory gate): each launch against its plain version at 1e7 chars, each
-  path against the oracle (O(w) per window: canonical w = 32,767 at 1e6
-  chars, the others at 3e5), the density of forward closed syncmers
+  path against the oracle (O(w) per window: canonical w = 32,767 at 3e5
+  chars, the others at 1e5), the density of forward closed syncmers
   against 2/w, kernel time and bound at 1e8;
 - `ShortSeqSketcher` (one captured CUDA graph, canonical k=21 w=11):
   `sketch_many` of 10,000 random sequences of 30-8,222 chars, each
@@ -108,7 +111,17 @@ Then the paths of the last slices:
 - `fused_sharded_sketch` of the 1e8 bases over ["cuda:0"] and
   ["cuda:0"] * 4 in every mode family (one with the N mask), each
   bit-equal to `Builder.run`; `multihost_sketch` under an NCCL group of one
-  process and `_allgather_ragged_planes` of two planes over it.
+  process and `_allgather_ragged_planes` of two planes over it;
+- the randomized differential fuzz (`simd_minimizers_tpu_torch.tools.fuzz`)
+  at seed S on the card: up to 360 configs started within 90 s, at least
+  300 checked (40 on the large-w route), over every entry point, mode,
+  hasher and input kind, each bit-equal to the oracle;
+- one torch.profiler trace (`utils/profiling.trace`) of one canonical
+  `Builder.run` of the 1e8 bases, a main path: the three kernels' device
+  times, the device's idle share and its largest idle gap;
+- the examples, each in a process of its own: `examples.bench` at 1e7
+  bases (canonical) and `examples.multihost_demo` (two processes over
+  gloo on this card, each against the oracle).
 Every one of the 12 `minimizer_tiles` instances and kmer_values must have
 run on a main path. Last, it holds every 1e8 path's builder against the NumPy oracle at
 1e6 chars with a mask of the same shape, and the minimizer builders on the
@@ -875,6 +888,10 @@ def _genome(ctx):
         del again
     _split_print("sketch_records", lambda: run())
     _fasta(ctx, names, codes, masks, out)
+    del out
+    t = time.perf_counter()
+    _genome_fasta(ctx, names, codes, masks)
+    print(f"  (genome_fasta: {time.perf_counter() - t:.1f} s)")
 
 
 def _split_print(what, fn):
@@ -894,6 +911,143 @@ def _split_print(what, fn):
     print(f"  {what} wall split (each stage waits for the card): {wall:.3f} s = "
           + ", ".join(f"{name} {sec:.3f}" for name, sec in parts.items())
           + f", outside the stages {wall - sum(parts.values()):.3f} s")
+
+
+def _write_fasta(path, names, codes, masks, rng):
+    """Records as a FASTA file: a header line, then 60-char lines of the
+    codes as letters (code order ACTG), N where the mask is set, and 100
+    lowercase stretches of 1,000-50,000 bases a record."""
+    import numpy as np
+
+    with open(path, "wb") as f:
+        for name, c, m in zip(names, codes, masks):
+            seq = np.frombuffer(b"ACTG", np.uint8)[c]  # code order
+            seq[m] = ord("N")
+            for a, n in zip(rng.integers(0, max(seq.size, 1), 100),
+                            rng.integers(1000, 50_001, 100)):
+                seq[a:a + n] |= 0x20
+            f.write(f">{name} GRCh38-length random\n".encode())
+            lines = -(-seq.size // 60)
+            body = np.full((lines, 61), ord("\n"), np.uint8)
+            flat = np.zeros(lines * 60, np.uint8)
+            flat[:seq.size] = seq
+            body[:, :60] = flat.reshape(lines, 60)
+            last = (lines - 1) * 61 + seq.size - (lines - 1) * 60
+            f.write(body.ravel()[:last].tobytes() + b"\n")
+
+
+def _records_digest(names, codes, masks) -> str:
+    """sha256 of the records as read_fasta must return them: each name, its
+    2-bit codes (3, the code of N and n, where masked) and its flags."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for name, c, m in zip(names, codes, masks):
+        h.update(name.encode())
+        h.update(np.where(m, np.uint8(3), c).astype(np.uint8))
+        h.update(m.astype(np.uint8))
+    return h.hexdigest()
+
+
+# read_fasta of one file in a process of its own (started through LAUNCHER):
+# argv path, "native" (the native scan) or "numpy" (fasta_scan_plain, the
+# NumPy passes); prints its wall, resident memory before and at its peak
+# (getrusage, and /proc/self/statm every 5 ms), the records and bases, and
+# the records' digest as _records_digest computes it.
+FASTA_SCAN_SCRIPT = """
+import hashlib, json, resource, sys, threading, time
+sys.modules["jax"] = None
+sys.modules["simd_minimizers_tpu"] = None
+from simd_minimizers_tpu_torch import native
+from simd_minimizers_tpu_torch.seq import fasta
+def rss_mib():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize() / 2**20
+path, route = sys.argv[1:3]
+if route == "numpy":
+    fasta.fasta_scan = fasta.fasta_scan_plain
+else:
+    native.library()
+before = rss_mib()
+sampled, done = [before], threading.Event()
+def sample():
+    while not done.wait(0.005):
+        sampled.append(rss_mib())
+sampler = threading.Thread(target=sample)
+sampler.start()
+t = time.perf_counter()
+recs = fasta.read_fasta(path)
+wall = time.perf_counter() - t
+done.set()
+sampler.join()
+h = hashlib.sha256()
+for r in recs:
+    h.update(r.name.encode())
+    h.update(r.codes)
+    h.update(r.ambiguous)
+print(json.dumps({"wall_s": wall, "rss_before_mib": before,
+                  "ru_maxrss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
+                  "sampled_peak_mib": max(sampled), "records": len(recs),
+                  "bp": sum(len(r) for r in recs), "sha256": h.hexdigest()}))
+"""
+
+
+def _scan_routes(what, path, digest, note, routes=("numpy", "native", "native", "numpy")):
+    """read_fasta of `path` through the NumPy scan and the native scan, in
+    the order of `routes`, each in a process of its own: walls and peak RSS
+    above the start; every run must give the records whose digest is
+    `digest`."""
+    import json
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    size = os.path.getsize(path)
+    for route in routes:
+        res = subprocess.run([sys.executable, "-c", LAUNCHER, sys.executable, "-c",
+                              FASTA_SCAN_SCRIPT, path, route],
+                             cwd=root, capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"read_fasta ({route}) failed ({res.returncode}):\n{res.stderr}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        before = got["rss_before_mib"]
+        print(f"  read_fasta, {what} ({size} bytes), {route} scan: wall {got['wall_s']:.3f} s "
+              f"({size / got['wall_s'] / 1e9:.3f} GB/s); {got['records']} records, "
+              f"{got['bp']} bp; resident {before:.0f} MiB before, peak extra "
+              f"{got['ru_maxrss_mib'] - before:.0f} MiB by getrusage, "
+              f"{got['sampled_peak_mib'] - before:.0f} MiB sampled; records as written: "
+              f"{got['sha256'] == digest}; host of {note}")
+        if got["sha256"] != digest:
+            raise RuntimeError(f"read_fasta ({route}) of {what} differs from what was written")
+
+
+def _genome_fasta(ctx, names, codes, masks):
+    """The genome's 224 records (3.1 Gbp) written as a FASTA, then
+    read_fasta of it through the native scan and the NumPy scan, once
+    each (`_scan_routes`): wall and peak RSS of each, both equal to the
+    records written."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(root, "build"))
+    try:
+        path = os.path.join(tmp, "genome.fa")
+        t = time.perf_counter()
+        _write_fasta(path, names, codes, masks, np.random.default_rng(ctx["seed"] + 8))
+        digest = _records_digest(names, codes, masks)
+        print(f"genome FASTA: {len(names)} records, {sum(c.size for c in codes)} bp, "
+              f"{os.path.getsize(path)} bytes written and digested in "
+              f"{time.perf_counter() - t:.1f} s")
+        _scan_routes("the genome", path, digest, ctx["card_note"], ("native", "numpy"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _fasta(ctx, names, codes, masks, out):
@@ -924,20 +1078,8 @@ def _fasta(ctx, names, codes, masks, out):
         rng = np.random.default_rng(ctx["seed"] + 4)
         path = os.path.join(tmp, "chr21_22.fa")
         pick = [names.index("chr21"), names.index("chr22")]
-        with open(path, "wb") as f:
-            for i in pick:
-                seq = np.frombuffer(b"ACTG", np.uint8)[codes[i]]  # code order
-                seq[masks[i]] = ord("N")
-                for a, n in zip(rng.integers(0, seq.size, 100), rng.integers(1000, 50_001, 100)):
-                    seq[a:a + n] |= 0x20
-                f.write(f">{names[i]} GRCh38-length random\n".encode())
-                lines = -(-seq.size // 60)
-                body = np.full((lines, 61), ord("\n"), np.uint8)
-                flat = np.zeros(lines * 60, np.uint8)
-                flat[:seq.size] = seq
-                body[:, :60] = flat.reshape(lines, 60)
-                last = (lines - 1) * 61 + seq.size - (lines - 1) * 60
-                f.write(body.ravel()[:last].tobytes() + b"\n")
+        _write_fasta(path, [names[i] for i in pick], [codes[i] for i in pick],
+                     [masks[i] for i in pick], rng)
         bp = sum(codes[i].size for i in pick)
         torch.cuda.empty_cache()
         npz = os.path.join(tmp, "sketch.npz")
@@ -959,6 +1101,9 @@ def _fasta(ctx, names, codes, masks, out):
               f"sketch_fasta CLI {cli:.2f} s wall: " + " | ".join(res.stderr.strip().splitlines())
               + f" | outside these stages {cli - staged:.2f} s (a process that only imports "
               f"the package: {start:.2f} s)")
+        _scan_routes("chr21 + chr22, the CLI's input", path,
+                     _records_digest([names[i] for i in pick], [codes[i] for i in pick],
+                                     [masks[i] for i in pick]), ctx["card_note"])
         t = time.perf_counter()
         recs = read_fasta(path)
         parse = time.perf_counter() - t
@@ -1204,15 +1349,18 @@ def _collect(b, sel, masked: bool):
     return (oracle.collect_and_dedup(sel, skip_sentinel=masked),)
 
 
-N_ORACLE_LARGE_W = 3 * 10**5  # chars of the oracle check of the other large-w paths
+# chars of the oracle check of canonical w = 32,767 and of the other large-w
+# paths (the oracle is O(w) per window; the fuzz phase holds the large-w
+# route against it at 60 more geometries)
+N_ORACLE_LARGE_W, N_ORACLE_LARGE_W_OTHERS = 3 * 10**5, 10**5
 
 
 def _large_w(ctx):
     """Large w at 1e8 chars through Builder.run(device="cuda"): the large-w
     route of minimizer_tiles. Each launch against its plain version at 1e7
     chars, each path against the oracle (card and oracle on the same input;
-    the oracle is O(w) per window): canonical w = 32,767 at 1e6 chars, the
-    others at 3e5; the density of forward closed syncmers."""
+    the oracle is O(w) per window): canonical w = 32,767 at 3e5 chars, the
+    others at 1e5; the density of forward closed syncmers."""
     import numpy as np
     import torch
 
@@ -1230,7 +1378,7 @@ def _large_w(ctx):
     # above 2/(w+1) at large w (ties of the top 16 bits between the two
     # arms' picks, the oracle alike: 11x at w = 32,767), so it is printed and
     # held by equality
-    big, small_n = N_ORACLE, N_ORACLE_LARGE_W
+    big, small_n = N_ORACLE_LARGE_W, N_ORACLE_LARGE_W_OTHERS
     paths = [
         ("canonical minimizers", smt.canonical_minimizers(k, 32_767), False, "dna", None, big),
         ("forward minimizers, chromosome mask", smt.minimizers(k, 61_439), True, "dna", None,
@@ -1475,6 +1623,126 @@ def _sharded(ctx):
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+
+FUZZ_CONFIGS = 360  # configs the fuzz phase draws (one in six on the large-w route)
+FUZZ_SECONDS = 90  # the phase starts no new config after this
+FUZZ_MIN, FUZZ_MIN_LARGE_W = 300, 40  # configs it must check, all and on the large-w route
+
+
+def _fuzz(ctx):
+    """The randomized differential fuzz (simd_minimizers_tpu_torch/tools/fuzz.py)
+    on the card at a fixed seed: every entry point, mode, hasher and input
+    kind, bit-equal to the oracle; any mismatch raises with its config."""
+    from simd_minimizers_tpu_torch.ops import pipeline
+    from simd_minimizers_tpu_torch.tools import fuzz
+
+    s = fuzz.run(seed=ctx["seed"], configs=FUZZ_CONFIGS, seconds=FUZZ_SECONDS, device=DEVICE)
+    print(f"fuzz: {s['configs']} configs of seed {s['seed']} on {s['device']}, 0 mismatches, "
+          f"{s['seconds']:.1f} s ({s['configs_per_s']:.2f} configs/s); {ctx['card_note']}")
+    for key in ("by_entry", "by_mode", "by_route", "by_hasher", "by_kind", "by_mask"):
+        print(f"  {key[3:]}: " + ", ".join(f"{k} {v}" for k, v in s[key].items()))
+    print(f"  slowest: {s['slowest']['entry_s']:.3f} s through its entry: "
+          f"{s['slowest']['config']}")
+    large = s["by_route"].get("large-w", 0)
+    if s["configs"] < FUZZ_MIN or large < FUZZ_MIN_LARGE_W:
+        raise RuntimeError(f"fuzz: {s['configs']} configs ({large} on the large-w route) in the "
+                           f"time box; at least {FUZZ_MIN} ({FUZZ_MIN_LARGE_W}) are required")
+    seen = {"entry": set(s["by_entry"]), "mode": set(s["by_mode"]),
+            "hasher": {h.split(",")[0] for h in s["by_hasher"]}, "kind": set(s["by_kind"])}
+    want = {"entry": set(fuzz.ENTRIES), "mode": set(pipeline.MODES),
+            "hasher": set(fuzz.HASHERS), "kind": set(fuzz.KINDS)}
+    if seen != want:
+        raise RuntimeError(f"fuzz: covered {seen}, not {want}")
+
+
+def _trace(ctx):
+    """One torch.profiler trace (utils/profiling.trace) of one canonical
+    Builder.run of the 1e8 bases, a main path: the three kernels' device
+    times, the device's busy and idle share of the traced call, and its
+    largest idle gap, from the trace's timeline. The trace is written under
+    build/ and removed."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch.ops import fused, pipeline
+    from simd_minimizers_tpu_torch.utils import profiling
+
+    seq = ctx["inputs"]["dna"][0]
+    b = smt.canonical_minimizers(K, W)
+    b.run(seq, device=ctx["dev"])  # warm
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(root, "build"))
+    try:
+        def traced():
+            with profiling.trace(tmp) as path:
+                b.run(seq, device=ctx["dev"])
+            return path
+
+        path, wall, launched, _ = _main_path(traced)
+        instance = fused.instance_name(True, pipeline.MODE_MINIMIZERS, False)
+        _expect_launches("trace", launched, instance, 1)
+        ctx["rec"].tally(launched, instance, "")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dev_ev = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    print(f"trace: one Builder.run of {N} bases, canonical k={K} w={W} (wall {wall * 1e3:.2f} ms "
+          f"with the profiler on); Chrome trace of {size} bytes, {len(events)} events, "
+          f"{len(dev_ev)} on the device; {ctx['card_note']}")
+    if not dev_ev:
+        print("  the trace holds no device events (CUPTI gave none): device times not measured")
+        return
+    for name in ("minimizer_tiles", "tile_offsets", "tile_append"):
+        ts = [e["dur"] for e in dev_ev if e["cat"] == "kernel" and name in e["name"]]
+        print(f"  {name}: {len(ts)} launch(es), device time {sum(ts) / 1e3:.4f} ms")
+    copies = [e for e in dev_ev if e["cat"] != "kernel"]
+    print(f"  copies and sets: {len(copies)}, device time "
+          f"{sum(e['dur'] for e in copies) / 1e3:.4f} ms")
+    start, end = dev_ev[0]["ts"], max(e["ts"] + e["dur"] for e in dev_ev)
+    busy, gap, reach = 0.0, 0.0, start
+    for e in dev_ev:
+        gap = max(gap, e["ts"] - reach)
+        busy += max(0.0, e["ts"] + e["dur"] - max(reach, e["ts"]))
+        reach = max(reach, e["ts"] + e["dur"])
+    span = end - start
+    print(f"  device timeline {span / 1e3:.4f} ms from the first device event to the last: "
+          f"busy {busy / 1e3:.4f} ms, idle share {1 - busy / span:.4f}, largest idle gap "
+          f"{gap / 1e3:.4f} ms")
+
+
+def _examples(ctx):
+    """The port's examples on the card, each in a process of its own: bench
+    (min of 5 Builder.run calls of 1e7 bases, canonical) and multihost_demo
+    (two processes over gloo, both sketching on this card, each checked
+    against the oracle)."""
+    import json
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for args in (["bench", "--n", str(10**7), "--canonical"], ["multihost_demo", "--device", "cuda"]):
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", f"simd_minimizers_tpu_torch.examples.{args[0]}",
+                              *args[1:]], cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if res.returncode != 0:
+            raise RuntimeError(f"examples.{args[0]} failed ({res.returncode}):\n{res.stdout}"
+                               f"{res.stderr}")
+        lines = res.stdout.strip().splitlines()
+        print(f"examples.{args[0]} {' '.join(args[1:])}: exit 0 in {wall:.1f} s: " + " | ".join(
+            x for x in lines if not x.startswith("{")) + f"; {ctx['card_note']}")
+        if args[0] == "bench":
+            got = json.loads(lines[-1])
+            if got["count"] <= 0 or abs(got["count"] / (10**7 - K - W + 2) - 2 / (W + 1)) > 0.01:
+                raise RuntimeError(f"examples.bench: count {got['count']}")
 
 
 CROSSOVER_W = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -1841,8 +2109,10 @@ def main() -> int:
     _cpu_route(ctx)
     print(f"  (cpu_route: {time.perf_counter() - t:.1f} s)")
 
-    # -- the stored route, large w, short sequences, sharded --------------
-    for phase in (_stored_sweep, _crossover, _large_w, _short_sequences, _sharded):
+    # -- the stored route, large w, short sequences, sharded, the fuzz, a
+    # profiler trace, the examples
+    for phase in (_stored_sweep, _crossover, _large_w, _short_sequences, _sharded, _fuzz, _trace,
+                  _examples):
         t = time.perf_counter()
         phase(ctx)
         print(f"  ({phase.__name__[1:]}: {time.perf_counter() - t:.1f} s)")

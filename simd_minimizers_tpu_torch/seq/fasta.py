@@ -1,14 +1,13 @@
 """FASTA ingestion (the bench crate's needletail path).
 
 The port's own copy of `simd_minimizers_tpu/seq/fasta.py` (`FastaRecord`,
-`read_fasta`, `read_human_genome`). Where the JAX package scans with its
-native C++ helper, `fasta_scan` here is one vectorised NumPy pass over the
-file's bytes: newline, carriage-return and header masks, then one gather
-of the sequence bytes and two table lookups. It gives exactly what the JAX
-package's `native.fasta_scan` gives: 2-bit codes `(c >> 1) & 3`, ambiguity
-flags (any byte but ACGTacgt), and the record starts, with lowercase,
-IUPAC codes and N, CRLF line ends, blank lines, a headerless file and an
-empty record; `.gz` files are read through gzip.
+`read_fasta`, `read_human_genome`). `read_fasta` scans the file's bytes
+in one C++ pass (`fasta_scan`: the port's native helper, a copy of the
+JAX package's): 2-bit codes `(c >> 1) & 3`, ambiguity flags (any byte but
+ACGTacgt), and the record starts, with lowercase, IUPAC codes and N, CRLF
+line ends, blank lines, a headerless file and an empty record; `.gz`
+files are read through gzip. `fasta_scan_plain` is the same scan in
+vectorised NumPy passes, which the tests hold the native one against.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ import gzip
 
 import numpy as np
 
+from .. import native
 from .packed import _ASCII_TO_CODE, _IS_ACGT, PackedNSeqVec, PackedSeqVec
 
 _NOT_ACGT = (~_IS_ACGT).astype(np.uint8)
@@ -53,6 +53,12 @@ def _record_names(buf: bytes) -> list[str]:
 
 
 def fasta_scan(buf: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(codes, ambiguous, starts) of a FASTA file's bytes, in one native
+    pass (`native.fasta_scan`; as `fasta_scan_plain` gives them)."""
+    return native.fasta_scan(buf)
+
+
+def fasta_scan_plain(buf: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(codes, ambiguous, starts) of a FASTA file's bytes: record i is
     codes[starts[i]:starts[i + 1]] (uint8 2-bit codes; ambiguous the same
     span of 0/1 flags). A line that starts with '>' opens a record; other

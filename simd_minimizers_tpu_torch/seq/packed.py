@@ -23,6 +23,8 @@ import dataclasses
 
 import numpy as np
 
+from .. import native
+
 # ASCII -> 2-bit code table: (c >> 1) & 3 maps A->0, C->1, T->2, G->3
 # (both cases). Other characters map pseudo-randomly; ambiguity is tracked
 # separately by PackedNSeqVec (as in packed-seq).
@@ -57,7 +59,13 @@ def _as_bytes(seq: bytes | bytearray | np.ndarray) -> np.ndarray:
 
 def pack_2bit(codes: np.ndarray) -> np.ndarray:
     """Pack 2-bit codes 4 to a byte, base i at bits 2 * (i % 4) of byte
-    i // 4 (the NumPy form of the JAX package's `native.pack_2bit`)."""
+    i // 4: the port's native packer (`native.pack_2bit`, a copy of the JAX
+    package's)."""
+    return native.pack_2bit(codes)
+
+
+def pack_2bit_plain(codes: np.ndarray) -> np.ndarray:
+    """The NumPy form of `pack_2bit`, which the tests hold it against."""
     codes = np.asarray(codes, dtype=np.uint8)
     pad = (-codes.size) % 4
     if pad:
@@ -224,8 +232,8 @@ class PackedNSeqVec:
 
     @staticmethod
     def from_ascii(seq: bytes | np.ndarray) -> "PackedNSeqVec":
-        arr = _as_bytes(seq)
-        return PackedNSeqVec(PackedSeqVec.from_ascii(arr), ~_IS_ACGT[arr])
+        codes, amb = native.pack_ascii(_as_bytes(seq))
+        return PackedNSeqVec(PackedSeqVec(pack_2bit(codes), 0, codes.size), amb.view(bool))
 
     def __len__(self) -> int:
         return len(self.seq)

@@ -1,0 +1,1 @@
+"""Tools of the port, each runnable as `python -m simd_minimizers_tpu_torch.tools.<name>`."""

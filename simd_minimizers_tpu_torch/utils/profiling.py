@@ -1,9 +1,15 @@
-"""Device timing with CUDA events, and the wall time of an entry point
-split into its host and device stages."""
+"""Device timing with CUDA events, profiler traces, the steady-state time
+of an enqueued call, and the wall time of an entry point split into its
+host and device stages.
+
+`trace` and `timed_amortized` are the counterparts of the JAX package's
+`utils/profiling.py`: a torch.profiler trace in place of a jax.profiler
+one, and a synchronize of the card in place of a fetch of a scalar."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
@@ -29,6 +35,46 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """A torch.profiler trace of the block, CPU and (with a card) CUDA
+    activity, exported on exit as a Chrome trace into `logdir` (made if
+    missing). Yields the trace file's path, which exists once the block has
+    ended."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with profile(activities=activities) as prof:
+        yield path
+        _sync()
+    prof.export_chrome_trace(path)
+
+
+def timed_amortized(fn, reps: int = 5, probes: int = 3) -> float:
+    """Steady-state seconds per `fn()` call with the fixed cost of one
+    synchronisation cancelled: batches of 1 and of reps + 1 calls are
+    enqueued back to back and end in one synchronize of the card (none on
+    the CPU), and a call takes (t_many - t_one) / reps, each the least of
+    `probes` batches (`probes - 1` of the long ones)."""
+    fn()  # build and warm
+    _sync()
+
+    def batch(m: int) -> float:
+        t0 = time.perf_counter()
+        for _ in range(m):
+            fn()
+        _sync()
+        return time.perf_counter() - t0
+
+    t_one = min(batch(1) for _ in range(probes))
+    t_many = min(batch(reps + 1) for _ in range(max(probes - 1, 1)))
+    return max((t_many - t_one) / reps, 1e-9)
 
 
 def _sync() -> None:

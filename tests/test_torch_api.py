@@ -209,10 +209,13 @@ def test_run_scalar_is_the_oracle():
     assert list(smt.canonical_minimizers(5, 7).run_scalar_once(ps)) == [0, 7, 9, 15]
 
 
-def test_imports_without_jax():
-    """The port runs with neither JAX nor the JAX package importable."""
+def test_imports_without_jax(tmp_path):
+    """The port runs with neither JAX nor the JAX package importable: its
+    modules, tools, examples, native helpers and profiler trace."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['simd_minimizers_tpu'] = None\n"
+        "import os\n"
+        "import numpy as np\n"
         "import torch\n"
         "import simd_minimizers_tpu_torch as smt\n"
         "from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline, _build\n"
@@ -262,13 +265,25 @@ def test_imports_without_jax():
         "assert got.tolist() == want.tolist()\n"
         "assert multihost.multihost_sketch(codes, 5, 7, smt.NtHasher(5),\n"
         "                                  device='cpu').tolist() == want.tolist()\n"
+        "from simd_minimizers_tpu_torch.tools import fuzz\n"
+        "from simd_minimizers_tpu_torch.examples import bench, multihost_demo, variance\n"
+        "assert fuzz.run(seed=1, configs=7, device='cpu')['configs'] == 7\n"
+        "assert variance.main(['--len', '500', '--reps', '2', '--device', 'cpu'])['density'] > 0\n"
+        "c, a = native.pack_ascii(np.frombuffer(b'ACGTN', np.uint8))\n"
+        "assert c.tolist() == [0, 1, 3, 2, 3] and a.tolist() == [0, 0, 0, 0, 1]\n"
+        "assert native.pack_2bit(c[:4]).tolist() == [0b10_11_01_00]\n"
+        "codes, amb, starts = fasta.fasta_scan(np.frombuffer(b'>a\\nACGN\\n', np.uint8))\n"
+        "assert codes.tolist() == [0, 1, 3, 3] and starts.tolist() == [0, 4]\n"
+        "with profiling.trace(os.path.join(os.environ['SMT_TRACE_DIR'], 't')) as path:\n"
+        "    smt.minimizers(5, 7).run(ps, device='cpu')\n"
+        "assert os.path.exists(path)\n"
         "assert sys.modules['jax'] is None and sys.modules['simd_minimizers_tpu'] is None\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=240, env={**os.environ, "SMT_TRACE_DIR": str(tmp_path)})
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.strip().splitlines()[-1] == "ok"
 
 
 def _port_files():
@@ -278,13 +293,18 @@ def _port_files():
 
 
 def test_port_never_imports_the_jax_package():
-    """No module of the port, and not chip_smoke.py, imports
-    simd_minimizers_tpu or jax, at any depth of its code."""
+    """No module of the port (its tools and examples included), and not
+    chip_smoke.py, imports simd_minimizers_tpu or jax, at any depth of its
+    code."""
     files = _port_files()
     assert len(files) >= 21
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {os.path.join('simd_minimizers_tpu_torch', 'ops', 'device_sketcher.py'),
-            os.path.join('simd_minimizers_tpu_torch', 'parallel', 'shard.py')} <= names
+            os.path.join('simd_minimizers_tpu_torch', 'parallel', 'shard.py'),
+            os.path.join('simd_minimizers_tpu_torch', 'tools', 'fuzz.py'),
+            os.path.join('simd_minimizers_tpu_torch', 'examples', 'bench.py'),
+            os.path.join('simd_minimizers_tpu_torch', 'examples', 'variance.py'),
+            os.path.join('simd_minimizers_tpu_torch', 'examples', 'multihost_demo.py')} <= names
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

@@ -9,7 +9,9 @@ across waves) and the batch engine behind run_batch; the large-w route
 (both routes bit-equal, w up to 61,439), ShortSeqSketcher's captured
 graph, sharded sketching on one card and NCCL in a world of one; the
 kmer_values kernel against its plain version and the host (positions past
-2^31 included) and Output's values after a card run, by the launch count.
+2^31 included) and Output's values after a card run, by the launch count;
+the randomized fuzz (tools/fuzz.py) on the card, and read_fasta's native
+scan into sketch_records against the NumPy scan's records.
 The port
 runs on its own classes; the independent reference is the JAX package's
 NumPy oracle with the JAX package's hashers (both import no JAX).
@@ -1159,3 +1161,57 @@ def test_kmer_values_launch_failure_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="kmer_values failed"):
         device_values.kmer_values_limbs(chars, pos, 21, True)
     assert device_values.LAUNCHES["kmer_values"] == before
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_fuzz_on_card(dev, seed):
+    """The randomized differential fuzz (tools/fuzz.py) on the card: 50
+    configs of each seed through every entry point, bit-equal to the
+    oracle, with launches of the kernels."""
+    from simd_minimizers_tpu_torch.tools import fuzz
+
+    before = sum(fused.LAUNCHES.values())
+    s = fuzz.run(seed=seed, configs=50, device="cuda")
+    assert s["configs"] == 50 and s["mismatches"] == 0 and s["device"].startswith("cuda")
+    assert set(s["by_entry"]) == set(fuzz.ENTRIES) and s["by_route"]["large-w"] >= 8
+    assert sum(fused.LAUNCHES.values()) > before
+
+
+def test_native_fasta_scan_on_card(dev, tmp_path):
+    """read_fasta (the native scan) -> sketch_records on the card gives the
+    positions of the NumPy scan's records, and the oracle's."""
+    from simd_minimizers_tpu_torch import hashers
+    from simd_minimizers_tpu_torch.seq import fasta
+
+    rng = np.random.default_rng(0xFA5)
+    acgtn = np.frombuffer(b"ACGTNacgtnRY", np.uint8)
+    raw = b"".join(b">r%d d\r\n" % i + b"\r\n".join(
+        acgtn[rng.integers(0, 12, int(n))][j:j + 60].tobytes() for j in range(0, int(n), 60))
+        + b"\r\n" for i, n in enumerate(rng.integers(0, 200_000, 12)))
+    p = tmp_path / "g.fa"
+    p.write_bytes(raw)
+    recs = fasta.read_fasta(str(p))
+    codes, amb, starts = fasta.fasta_scan_plain(np.frombuffer(raw, np.uint8))
+    assert len(recs) == starts.size - 1 == 12
+    h = hashers.NtHasher(21, canonical=True)
+    got = fused.sketch_records([r.codes for r in recs], 21, 11, h, pipeline.MODE_MINIMIZERS,
+                               [r.ambiguous for r in recs], dna=True, device=dev)
+    want = fused.sketch_records(
+        [codes[a:e] for a, e in zip(starts[:-1], starts[1:])], 21, 11, h,
+        pipeline.MODE_MINIMIZERS, [amb[a:e] for a, e in zip(starts[:-1], starts[1:])],
+        dna=True, device=dev)
+    jh = NtHasher(21, canonical=True)
+    for g, p_, r in zip(got, want, recs):
+        np.testing.assert_array_equal(g, p_)
+        np.testing.assert_array_equal(g, oracle.collect_and_dedup(
+            oracle.selected_stream(r.codes, 21, 11, jh, ambiguous=r.ambiguous),
+            skip_sentinel=True))
+
+
+def test_variance_example_on_card(dev):
+    """examples.variance --device cuda: each count of the kernel path held
+    equal to the oracle's, the density near 2/(w+1)."""
+    from simd_minimizers_tpu_torch.examples import variance
+
+    res = variance.main(["--device", "cuda", "--reps", "20", "--len", "20000"])
+    assert res["via"] == "Builder.run on cuda (= oracle)" and abs(res["density"] - 2 / 12) < 0.01

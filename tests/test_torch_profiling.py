@@ -1,8 +1,13 @@
 """The wall-time split of the port's entry points (utils/profiling): stages
 are timed only inside `split_wall`, a stage inside another is charged to
-the outer one, and the split leaves every result as it was."""
+the outer one, and the split leaves every result as it was. `trace` writes
+a Chrome trace of a block; `timed_amortized` gives a positive time per
+call."""
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -80,3 +85,36 @@ def test_records_split_keeps_the_result(batch_max_bp):
         np.testing.assert_array_equal(g, p)
     assert {"mask packing", "upload", "kernels", "seam merge"} <= set(parts)
     assert ("split by record" in parts) == bool(batch_max_bp)
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """A torch.profiler trace of one Builder.run on the CPU, exported into
+    the log directory, holds the run's CPU operations."""
+    seq = smt.PackedSeqVec.random(3000, np.random.default_rng(1))
+    logdir = tmp_path / "logs"
+    with profiling.trace(str(logdir)) as path:
+        out = smt.canonical_minimizers(5, 7).run(seq, device="cpu")
+    assert os.path.dirname(path) == str(logdir) and os.path.isfile(path)
+    events = json.load(open(path))["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert out.positions.size
+
+
+def test_trace_leaves_no_file_on_error(tmp_path):
+    with pytest.raises(ZeroDivisionError):
+        with profiling.trace(str(tmp_path)):
+            1 / 0
+    assert not list(tmp_path.iterdir())
+
+
+def test_timed_amortized():
+    """Seconds per call of a CPU function: positive, and larger for more work."""
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return sum(range(20_000))
+
+    t = profiling.timed_amortized(fn, reps=4, probes=2)
+    assert 0 < t < 1
+    assert len(calls) == 1 + 2 * 1 + 1 * 5  # warm, probes of one, one batch of reps + 1
