@@ -69,10 +69,7 @@ peak device memory:
   and the native extractor's values, with its stage times and the start of
   a process that only imports the package; the CLI's values step on the
   card (kmer_values on code bytes) as a main path, and the kernel on
-  chr21's code bytes against its plain version; `read_fasta` of the CLI's
-  file and of the whole genome written as a FASTA (3.1 Gbp), each in a
-  process of its own through the NumPy scan and the native scan: wall and
-  peak RSS of each, every record as written;
+  chr21's code bytes against its plain version;
 - `Builder.run_batch` of 1,000,000 random 150 bp reads (canonical
   minimizers) and of 20,000 reads of 100-10,000 bp (forward minimizers with
   a 1% mask; canonical super-k-mers, whose launches run the super-k-mer
@@ -101,8 +98,8 @@ Then the paths of the last slices:
   32,767, canonical super-k-mers and forward closed syncmers at 32,767,
   canonical at w = 21,721 and 21,723 (the two sides of the old shared-
   memory gate): each launch against its plain version at 1e7 chars, each
-  path against the oracle (O(w) per window: canonical w = 32,767 at 3e5
-  chars, the others at 1e5), the density of forward closed syncmers
+  path against the oracle (O(w) per window: canonical w = 32,767 at 1e6
+  chars, the others at 3e5), the density of forward closed syncmers
   against 2/w, kernel time and bound at 1e8;
 - `ShortSeqSketcher` (one captured CUDA graph, canonical k=21 w=11):
   `sketch_many` of 10,000 random sequences of 30-8,222 chars, each
@@ -296,17 +293,6 @@ def _sparse_mask(n: int, rng):
     return amb
 
 
-# GRCh38's primary chromosomes (the assembly's published sequence lengths):
-# 3,088,269,832 bp in all.
-GRCH38 = [("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559),
-          ("chr4", 190_214_555), ("chr5", 181_538_259), ("chr6", 170_805_979),
-          ("chr7", 159_345_973), ("chr8", 145_138_636), ("chr9", 138_394_717),
-          ("chr10", 133_797_422), ("chr11", 135_086_622), ("chr12", 133_275_309),
-          ("chr13", 114_364_328), ("chr14", 107_043_718), ("chr15", 101_991_189),
-          ("chr16", 90_338_345), ("chr17", 83_257_441), ("chr18", 80_373_285),
-          ("chr19", 58_617_616), ("chr20", 64_444_167), ("chr21", 46_709_983),
-          ("chr22", 50_818_468), ("chrX", 156_040_895), ("chrY", 57_227_415)]
-N_CONTIGS, CONTIG_BP = 200, (10_000, 200_000)  # unplaced-scaffold-like contigs
 BATCH_MAX_BP = 1 << 20  # sketch_records' batch route takes records up to this length
 N_LONG = 2**31 + 2**26  # one sequence past 2^31 chars
 LONG_CHECK = (2**31 - 2**25, 2**31 + 2**25)  # its windows held against the plain version
@@ -763,6 +749,8 @@ def _chromosome_records(ctx):
     import numpy as np
     import torch
 
+    from simd_minimizers_tpu_torch.tools.fasta_ingest import CONTIG_BP, GRCH38, N_CONTIGS
+
     rng = np.random.default_rng(ctx["seed"] + 3)
     lens = [n for _, n in GRCH38] + [int(x) for x in rng.integers(CONTIG_BP[0], CONTIG_BP[1] + 1,
                                                                    N_CONTIGS)]
@@ -786,6 +774,7 @@ def _genome(ctx):
     import simd_minimizers_tpu_torch as smt
     from simd_minimizers_tpu_torch import convert
     from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline
+    from simd_minimizers_tpu_torch.tools.fasta_ingest import GRCH38, N_CONTIGS
 
     dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
     l = K + W - 1
@@ -888,10 +877,6 @@ def _genome(ctx):
         del again
     _split_print("sketch_records", lambda: run())
     _fasta(ctx, names, codes, masks, out)
-    del out
-    t = time.perf_counter()
-    _genome_fasta(ctx, names, codes, masks)
-    print(f"  (genome_fasta: {time.perf_counter() - t:.1f} s)")
 
 
 def _split_print(what, fn):
@@ -911,143 +896,6 @@ def _split_print(what, fn):
     print(f"  {what} wall split (each stage waits for the card): {wall:.3f} s = "
           + ", ".join(f"{name} {sec:.3f}" for name, sec in parts.items())
           + f", outside the stages {wall - sum(parts.values()):.3f} s")
-
-
-def _write_fasta(path, names, codes, masks, rng):
-    """Records as a FASTA file: a header line, then 60-char lines of the
-    codes as letters (code order ACTG), N where the mask is set, and 100
-    lowercase stretches of 1,000-50,000 bases a record."""
-    import numpy as np
-
-    with open(path, "wb") as f:
-        for name, c, m in zip(names, codes, masks):
-            seq = np.frombuffer(b"ACTG", np.uint8)[c]  # code order
-            seq[m] = ord("N")
-            for a, n in zip(rng.integers(0, max(seq.size, 1), 100),
-                            rng.integers(1000, 50_001, 100)):
-                seq[a:a + n] |= 0x20
-            f.write(f">{name} GRCh38-length random\n".encode())
-            lines = -(-seq.size // 60)
-            body = np.full((lines, 61), ord("\n"), np.uint8)
-            flat = np.zeros(lines * 60, np.uint8)
-            flat[:seq.size] = seq
-            body[:, :60] = flat.reshape(lines, 60)
-            last = (lines - 1) * 61 + seq.size - (lines - 1) * 60
-            f.write(body.ravel()[:last].tobytes() + b"\n")
-
-
-def _records_digest(names, codes, masks) -> str:
-    """sha256 of the records as read_fasta must return them: each name, its
-    2-bit codes (3, the code of N and n, where masked) and its flags."""
-    import hashlib
-
-    import numpy as np
-
-    h = hashlib.sha256()
-    for name, c, m in zip(names, codes, masks):
-        h.update(name.encode())
-        h.update(np.where(m, np.uint8(3), c).astype(np.uint8))
-        h.update(m.astype(np.uint8))
-    return h.hexdigest()
-
-
-# read_fasta of one file in a process of its own (started through LAUNCHER):
-# argv path, "native" (the native scan) or "numpy" (fasta_scan_plain, the
-# NumPy passes); prints its wall, resident memory before and at its peak
-# (getrusage, and /proc/self/statm every 5 ms), the records and bases, and
-# the records' digest as _records_digest computes it.
-FASTA_SCAN_SCRIPT = """
-import hashlib, json, resource, sys, threading, time
-sys.modules["jax"] = None
-sys.modules["simd_minimizers_tpu"] = None
-from simd_minimizers_tpu_torch import native
-from simd_minimizers_tpu_torch.seq import fasta
-def rss_mib():
-    with open("/proc/self/statm") as f:
-        return int(f.read().split()[1]) * resource.getpagesize() / 2**20
-path, route = sys.argv[1:3]
-if route == "numpy":
-    fasta.fasta_scan = fasta.fasta_scan_plain
-else:
-    native.library()
-before = rss_mib()
-sampled, done = [before], threading.Event()
-def sample():
-    while not done.wait(0.005):
-        sampled.append(rss_mib())
-sampler = threading.Thread(target=sample)
-sampler.start()
-t = time.perf_counter()
-recs = fasta.read_fasta(path)
-wall = time.perf_counter() - t
-done.set()
-sampler.join()
-h = hashlib.sha256()
-for r in recs:
-    h.update(r.name.encode())
-    h.update(r.codes)
-    h.update(r.ambiguous)
-print(json.dumps({"wall_s": wall, "rss_before_mib": before,
-                  "ru_maxrss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
-                  "sampled_peak_mib": max(sampled), "records": len(recs),
-                  "bp": sum(len(r) for r in recs), "sha256": h.hexdigest()}))
-"""
-
-
-def _scan_routes(what, path, digest, note, routes=("numpy", "native", "native", "numpy")):
-    """read_fasta of `path` through the NumPy scan and the native scan, in
-    the order of `routes`, each in a process of its own: walls and peak RSS
-    above the start; every run must give the records whose digest is
-    `digest`."""
-    import json
-    import os
-    import subprocess
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    size = os.path.getsize(path)
-    for route in routes:
-        res = subprocess.run([sys.executable, "-c", LAUNCHER, sys.executable, "-c",
-                              FASTA_SCAN_SCRIPT, path, route],
-                             cwd=root, capture_output=True, text=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(f"read_fasta ({route}) failed ({res.returncode}):\n{res.stderr}")
-        got = json.loads(res.stdout.strip().splitlines()[-1])
-        before = got["rss_before_mib"]
-        print(f"  read_fasta, {what} ({size} bytes), {route} scan: wall {got['wall_s']:.3f} s "
-              f"({size / got['wall_s'] / 1e9:.3f} GB/s); {got['records']} records, "
-              f"{got['bp']} bp; resident {before:.0f} MiB before, peak extra "
-              f"{got['ru_maxrss_mib'] - before:.0f} MiB by getrusage, "
-              f"{got['sampled_peak_mib'] - before:.0f} MiB sampled; records as written: "
-              f"{got['sha256'] == digest}; host of {note}")
-        if got["sha256"] != digest:
-            raise RuntimeError(f"read_fasta ({route}) of {what} differs from what was written")
-
-
-def _genome_fasta(ctx, names, codes, masks):
-    """The genome's 224 records (3.1 Gbp) written as a FASTA, then
-    read_fasta of it through the native scan and the NumPy scan, once
-    each (`_scan_routes`): wall and peak RSS of each, both equal to the
-    records written."""
-    import os
-    import shutil
-    import tempfile
-
-    import numpy as np
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(dir=os.path.join(root, "build"))
-    try:
-        path = os.path.join(tmp, "genome.fa")
-        t = time.perf_counter()
-        _write_fasta(path, names, codes, masks, np.random.default_rng(ctx["seed"] + 8))
-        digest = _records_digest(names, codes, masks)
-        print(f"genome FASTA: {len(names)} records, {sum(c.size for c in codes)} bp, "
-              f"{os.path.getsize(path)} bytes written and digested in "
-              f"{time.perf_counter() - t:.1f} s")
-        _scan_routes("the genome", path, digest, ctx["card_note"], ("native", "numpy"))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _fasta(ctx, names, codes, masks, out):
@@ -1078,8 +926,20 @@ def _fasta(ctx, names, codes, masks, out):
         rng = np.random.default_rng(ctx["seed"] + 4)
         path = os.path.join(tmp, "chr21_22.fa")
         pick = [names.index("chr21"), names.index("chr22")]
-        _write_fasta(path, [names[i] for i in pick], [codes[i] for i in pick],
-                     [masks[i] for i in pick], rng)
+        with open(path, "wb") as f:
+            for i in pick:
+                seq = np.frombuffer(b"ACTG", np.uint8)[codes[i]]  # code order
+                seq[masks[i]] = ord("N")
+                for a, n in zip(rng.integers(0, seq.size, 100), rng.integers(1000, 50_001, 100)):
+                    seq[a:a + n] |= 0x20
+                f.write(f">{names[i]} GRCh38-length random\n".encode())
+                lines = -(-seq.size // 60)
+                body = np.full((lines, 61), ord("\n"), np.uint8)
+                flat = np.zeros(lines * 60, np.uint8)
+                flat[:seq.size] = seq
+                body[:, :60] = flat.reshape(lines, 60)
+                last = (lines - 1) * 61 + seq.size - (lines - 1) * 60
+                f.write(body.ravel()[:last].tobytes() + b"\n")
         bp = sum(codes[i].size for i in pick)
         torch.cuda.empty_cache()
         npz = os.path.join(tmp, "sketch.npz")
@@ -1101,9 +961,6 @@ def _fasta(ctx, names, codes, masks, out):
               f"sketch_fasta CLI {cli:.2f} s wall: " + " | ".join(res.stderr.strip().splitlines())
               + f" | outside these stages {cli - staged:.2f} s (a process that only imports "
               f"the package: {start:.2f} s)")
-        _scan_routes("chr21 + chr22, the CLI's input", path,
-                     _records_digest([names[i] for i in pick], [codes[i] for i in pick],
-                                     [masks[i] for i in pick]), ctx["card_note"])
         t = time.perf_counter()
         recs = read_fasta(path)
         parse = time.perf_counter() - t
@@ -1349,18 +1206,15 @@ def _collect(b, sel, masked: bool):
     return (oracle.collect_and_dedup(sel, skip_sentinel=masked),)
 
 
-# chars of the oracle check of canonical w = 32,767 and of the other large-w
-# paths (the oracle is O(w) per window; the fuzz phase holds the large-w
-# route against it at 60 more geometries)
-N_ORACLE_LARGE_W, N_ORACLE_LARGE_W_OTHERS = 3 * 10**5, 10**5
+N_ORACLE_LARGE_W = 3 * 10**5  # chars of the oracle check of the other large-w paths
 
 
 def _large_w(ctx):
     """Large w at 1e8 chars through Builder.run(device="cuda"): the large-w
     route of minimizer_tiles. Each launch against its plain version at 1e7
     chars, each path against the oracle (card and oracle on the same input;
-    the oracle is O(w) per window): canonical w = 32,767 at 3e5 chars, the
-    others at 1e5; the density of forward closed syncmers."""
+    the oracle is O(w) per window): canonical w = 32,767 at 1e6 chars, the
+    others at 3e5; the density of forward closed syncmers."""
     import numpy as np
     import torch
 
@@ -1378,7 +1232,7 @@ def _large_w(ctx):
     # above 2/(w+1) at large w (ties of the top 16 bits between the two
     # arms' picks, the oracle alike: 11x at w = 32,767), so it is printed and
     # held by equality
-    big, small_n = N_ORACLE_LARGE_W, N_ORACLE_LARGE_W_OTHERS
+    big, small_n = N_ORACLE, N_ORACLE_LARGE_W
     paths = [
         ("canonical minimizers", smt.canonical_minimizers(k, 32_767), False, "dna", None, big),
         ("forward minimizers, chromosome mask", smt.minimizers(k, 61_439), True, "dna", None,
@@ -1698,11 +1552,12 @@ def _trace(ctx):
           f"with the profiler on); Chrome trace of {size} bytes, {len(events)} events, "
           f"{len(dev_ev)} on the device; {ctx['card_note']}")
     if not dev_ev:
-        print("  the trace holds no device events (CUPTI gave none): device times not measured")
-        return
+        raise RuntimeError("trace: the profiler recorded no device events")
     for name in ("minimizer_tiles", "tile_offsets", "tile_append"):
         ts = [e["dur"] for e in dev_ev if e["cat"] == "kernel" and name in e["name"]]
-        print(f"  {name}: {len(ts)} launch(es), device time {sum(ts) / 1e3:.4f} ms")
+        if len(ts) != 1:
+            raise RuntimeError(f"trace: {len(ts)} {name} kernel events, not 1")
+        print(f"  {name}: device time {ts[0] / 1e3:.4f} ms")
     copies = [e for e in dev_ev if e["cat"] != "kernel"]
     print(f"  copies and sets: {len(copies)}, device time "
           f"{sum(e['dur'] for e in copies) / 1e3:.4f} ms")

@@ -268,7 +268,10 @@ def test_imports_without_jax(tmp_path):
         "from simd_minimizers_tpu_torch.tools import fuzz\n"
         "from simd_minimizers_tpu_torch.examples import bench, multihost_demo, variance\n"
         "assert fuzz.run(seed=1, configs=7, device='cpu')['configs'] == 7\n"
-        "assert variance.main(['--len', '500', '--reps', '2', '--device', 'cpu'])['density'] > 0\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as printed:\n"
+        "    got = variance.main(['--len', '500', '--reps', '2', '--device', 'cpu'])\n"
+        "assert got['density'] > 0 and 'density' in printed.getvalue()\n"
         "c, a = native.pack_ascii(np.frombuffer(b'ACGTN', np.uint8))\n"
         "assert c.tolist() == [0, 1, 3, 2, 3] and a.tolist() == [0, 0, 0, 0, 1]\n"
         "assert native.pack_2bit(c[:4]).tolist() == [0b10_11_01_00]\n"
@@ -281,9 +284,9 @@ def test_imports_without_jax(tmp_path):
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=240, env={**os.environ, "SMT_TRACE_DIR": str(tmp_path)})
+                         text=True, timeout=120, env={**os.environ, "SMT_TRACE_DIR": str(tmp_path)})
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().splitlines()[-1] == "ok"
+    assert res.stdout.strip() == "ok"
 
 
 def _port_files():

@@ -2,7 +2,10 @@
 on the CPU, where the kernels' plain versions run: fixed seeds pass and
 cover every entry, mode, hasher and input kind; a planted mismatch (a
 monkeypatched oracle, or wrong values) exits nonzero and prints the config
-line; an exception is not swallowed; `--index` re-runs one config.
+line; an exception is not swallowed; `--index` re-runs one config. The
+fuzz's reference (the port's oracle over the port's hashers) is held against
+the JAX package's oracle over the JAX package's hashers on every config of
+two seeds.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ import sys
 import numpy as np
 import pytest
 
+from simd_minimizers_tpu import hashers as jhashers
+from simd_minimizers_tpu.ops import oracle as joracle
+from simd_minimizers_tpu_torch import convert
 from simd_minimizers_tpu_torch.ops import fused, pipeline
 from simd_minimizers_tpu_torch.tools import fuzz
 
@@ -34,6 +40,48 @@ def test_fuzz_on_cpu(seed):
     assert {h.split(",")[0] for h in s["by_hasher"]} == set(fuzz.HASHERS)
     assert set(s["by_mode"]) == set(pipeline.MODES) and set(s["by_kind"]) == set(fuzz.KINDS)
     assert set(s["by_mask"]) == set(fuzz.MASKS)
+
+
+JAX_HASHERS = {"nt": jhashers.NtHasher, "mul": jhashers.MulHasher,
+               "antilex": jhashers.AntiLexHasher}
+
+
+def _jax_expected(cfg, pieces):
+    """The JAX package's oracle planes of each piece, over its own hasher."""
+    h = JAX_HASHERS[cfg.hasher](cfg.k, canonical=cfg.canonical, seed=cfg.hasher_seed)
+    out = []
+    for chars, amb in pieces:
+        sel = joracle.selected_stream(chars, cfg.k, cfg.w, h, ambiguous=amb)
+        if cfg.mode == pipeline.MODE_SUPERKMERS:
+            out.append(joracle.collect_and_dedup_with_index(sel))
+        elif cfg.mode in pipeline.SYNCMER_MODES:
+            out.append((joracle.collect_syncmers(sel, cfg.w,
+                                                 cfg.mode == pipeline.MODE_OPEN_SYNCMERS),))
+        else:
+            out.append((joracle.collect_and_dedup(sel, skip_sentinel=amb is not None),))
+    return h, out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fuzz_reference_is_the_jax_oracle(seed):
+    """Every config of a seed (both routes, every mode, hasher, input kind
+    and mask): `fuzz.expected` equals the JAX package's oracle bit for bit,
+    and the fuzz's hasher is the JAX hasher as `convert.hasher_from` takes
+    it over."""
+    for i in range(35):
+        cfg = fuzz.draw(seed, i)
+        pieces = fuzz.make_inputs(cfg)
+        h, want = _jax_expected(cfg, pieces)
+        mine, theirs = fuzz.hasher_of(cfg), convert.hasher_from(h)
+        assert (type(mine), mine.k, mine.canonical, mine.seed) == (
+            type(theirs), theirs.k, theirs.canonical, theirs.seed), cfg.line()
+        got = fuzz.expected(cfg, pieces)
+        assert len(got) == len(want) == len(pieces), cfg.line()
+        for g, p in zip(got, want):
+            assert len(g) == len(p), cfg.line()
+            for a, b in zip(g, p):
+                assert a.dtype == b.dtype == np.uint32, cfg.line()
+                np.testing.assert_array_equal(a, b, err_msg=cfg.line())
 
 
 def test_fuzz_covers_the_config_space():

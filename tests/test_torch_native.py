@@ -10,6 +10,7 @@ raises. Integer outputs: tolerance 0.
 from __future__ import annotations
 
 import gzip
+import json
 
 import numpy as np
 import pytest
@@ -175,3 +176,29 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.pack_ascii(np.zeros(4, np.uint8))
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_fasta_ingest_tool_reads_back_what_it_wrote(tmp_path, capsys):
+    """`tools/fasta_ingest` (the NumPy-against-native ingestion measurement):
+    both routes give back every record as written, and the JAX package's
+    read_fasta reads the file it writes the same."""
+    from simd_minimizers_tpu_torch.tools import fasta_ingest
+
+    assert fasta_ingest.main(["--records", "contig0,contig3", "--routes", "numpy,native",
+                              "--dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    summary = json.loads(out[-1])
+    assert summary["ok"] and summary["records"] == 2 and summary["bp"] > 20_000
+    assert [r["route"] for r in summary["runs"]] == ["numpy", "native"]
+    assert all(r["bp"] == summary["bp"] and r["records"] == 2 for r in summary["runs"])
+    assert summary["runs"][0]["sha256"] == summary["runs"][1]["sha256"]
+    assert not list(tmp_path.iterdir())  # the file is removed
+    path = tmp_path / "g.fa"
+    recs = fasta_ingest.genome_records(0)[-3:]
+    bp, digest = fasta_ingest.write_fasta(path, recs, 0)
+    got, want = fasta.read_fasta(str(path)), jfasta.read_fasta(str(path))
+    assert [r.name for r in got] == [r.name for r in want] == [n for n, _ in recs]
+    assert sum(len(r) for r in got) == bp
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.codes, w.codes)
+        np.testing.assert_array_equal(g.ambiguous, w.ambiguous)
