@@ -97,10 +97,13 @@ Then the paths of the last slices:
   forward nt at w = 61,439 with the chromosome mask, forward mul text at
   32,767, canonical super-k-mers and forward closed syncmers at 32,767,
   canonical at w = 21,721 and 21,723 (the two sides of the old shared-
-  memory gate): each launch against its plain version at 1e7 chars, each
-  path against the oracle (O(w) per window: canonical w = 32,767 at 1e6
-  chars, the others at 3e5), the density of forward closed syncmers
-  against 2/w, kernel time and bound at 1e8;
+  memory gate), each a main path of four kernels (the pre-pass kmer_top16,
+  csrc/top16.cu, then the three): each launch against its plain version at
+  1e7 chars, kmer_top16 too, each path against the oracle (O(w) per window:
+  canonical w = 32,767 at 1e6 chars, the others at 3e5), the density of
+  forward closed syncmers against 2/w; at 1e8 the time and bound of the
+  pre-pass, of the route given its tops and of both, and on the first path
+  kmer_top16 against its plain version (its kernels-line entry);
 - `ShortSeqSketcher` (one captured CUDA graph, canonical k=21 w=11):
   `sketch_many` of 10,000 random sequences of 30-8,222 chars, each
   against the oracle, launches counted per replay; `measure_floor` at
@@ -119,8 +122,8 @@ Then the paths of the last slices:
 - the examples, each in a process of its own: `examples.bench` at 1e7
   bases (canonical) and `examples.multihost_demo` (two processes over
   gloo on this card, each against the oracle).
-Every one of the 12 `minimizer_tiles` instances and kmer_values must have
-run on a main path. Last, it holds every 1e8 path's builder against the NumPy oracle at
+Every one of the 12 `minimizer_tiles` instances, kmer_top16 and
+kmer_values must have run on a main path. Last, it holds every 1e8 path's builder against the NumPy oracle at
 1e6 chars with a mask of the same shape, and the minimizer builders on the
 golden vectors. Every failed check raises, and the script exits non-zero;
 without CUDA it exits non-zero before printing any result.
@@ -173,13 +176,27 @@ def _tiles_ops_per_window(k: int, canonical: bool, kind: str, text: bool, amb: b
     count and blend 5 (canonical); the keep test 2; and, with a mask, the
     sliding count 3. Loads from shared memory are not operations."""
     arms = 2 if canonical else 1
+    return ((0 if text else 2) + _hash_ops(k, canonical, kind) + arms * (2 + 3 + 2)
+            + (5 if canonical else 0) + 2 + (3 if amb else 0))
+
+
+def _hash_ops(k: int, canonical: bool, kind: str) -> int:
+    """The rolling hash's integer operations per k-mer (both strands when
+    canonical), as `_tiles_ops_per_window` counts them."""
     if kind == "antilex":
         mask = 0 if min(k, 16) == 16 else 1
-        hash_ops = (3 + mask) + ((4 + mask) if canonical else 0)
-    else:
-        hash_ops = 3 * arms
-    return ((0 if text else 2) + hash_ops + arms * (2 + 3 + 2)
-            + (5 if canonical else 0) + 2 + (3 if amb else 0))
+        return (3 + mask) + ((4 + mask) if canonical else 0)
+    return 3 * (2 if canonical else 1)
+
+
+def _top16_bound(n: int, k: int, canonical: bool, kind: str, text: bool):
+    """kmer_top16's bound over n chars: reads the chars once (0.25 B each of
+    2-bit input, 1 B of text) and writes 2 B per k-mer; per k-mer the decode
+    (2-bit input), the rolling hash, the strands' XOR (canonical) and the
+    shift to the top bits."""
+    nk = max(n - k + 1, 0)
+    ops = (0 if text else 2) + _hash_ops(k, canonical, kind) + (1 if canonical else 0) + 1
+    return _bound((n if text else n / 4) + 2 * nk, nk * ops)
 
 
 def _max_abs_err(got, want) -> int:
@@ -382,10 +399,13 @@ def _main_path(fn):
     return out, wall, launched, (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
-def _expect_launches(name, launched, instance, count):
+def _expect_launches(name, launched, instance, count, top16=0):
     """The main path ran `instance`, tile_offsets and tile_append `count`
-    times each and nothing else."""
+    times each, kmer_top16 `top16` times (the large-w route's pre-pass),
+    and nothing else."""
     want = {instance: count, "tile_offsets": count, "tile_append": count}
+    if top16:
+        want["kmer_top16"] = top16
     print(f"  main path launches: {launched}")
     if launched != want:
         raise RuntimeError(f"{name}: the main path launched {launched}, not {want}")
@@ -397,13 +417,25 @@ def _tiles_check(rec, name, args, kw, ops_per_window, plain_reps=(3, 2, 1), wind
     minimizer_tiles timed and recorded as `name`, tile_offsets and
     tile_append held at the same shapes. The operation bound counts
     `windows` (the windows the launch owns; default all n - l + 1, which
-    for a batch would count its padding). Returns the kernel path's ms."""
+    for a batch would count its padding). On the large-w route kmer_top16
+    is held against its plain version too, and minimizer_tiles is timed and
+    bounded given its tops (2 B per k-mer read, no hash operations), which
+    the wrapper otherwise computes first. Returns the kernel path's ms."""
     import torch
 
     from simd_minimizers_tpu_torch.ops import fused, pipeline
 
     tile = fused.TILE
     chars, n, k, w, mode, plane = args[0], args[1], args[2], args[3], args[7], args[8]
+    canonical, kind, text = args[6], kw.get("kind", "nt"), kw.get("text", False)
+    route_kw, route_bytes, errs = kw, 0, {}
+    if fused.sub_tile(k, w, canonical, mode, plane is not None, text, kind):
+        top_args = (chars, n, k, *args[4:7])
+        top_kw = {key: v for key, v in kw.items() if key in ("text", "kind", "byte_codes")}
+        top16 = fused.kmer_top16(*top_args, **top_kw)
+        errs["kmer_top16"] = _max_abs_err(top16, pipeline.kmer_top16_plain(*top_args, **top_kw))
+        route_kw, route_bytes = {**kw, "top16": top16}, 2 * top16.numel()
+        ops_per_window -= _hash_ops(k, canonical, kind)
     scratch, counts = fused.minimizer_tiles(*args, **kw)
     p_scratch, p_counts = pipeline.minimizer_tiles_plain(*args[:7], tile, *args[7:], **kw)
     live = torch.arange(tile, device=chars.device) < counts[:, None]
@@ -417,21 +449,21 @@ def _tiles_check(rec, name, args, kw, ops_per_window, plain_reps=(3, 2, 1), wind
     total = int(offsets[-1])
     err_a = _max_abs_err(fused.tile_append(scratch, counts, offsets, total),
                          pipeline.tile_append_plain(scratch, counts, offsets, total, tile))
-    for key, e in (("tile_offsets", err_o), ("tile_append", err_a)):
+    for key, e in (("tile_offsets", err_o), ("tile_append", err_a), *errs.items()):
         rec.entries[key]["max_abs_err"] = max(rec.entries[key]["max_abs_err"], e)
         if e:
             raise RuntimeError(f"{name}: {key} disagrees with its plain version")
     planes = 2 if mode == "superkmers" else 1
     if windows is None:
         windows = max(n - (k + w - 1) + 1, 0)
-    in_bytes = chars.numel() + (0 if plane is None else plane.numel())
+    in_bytes = chars.numel() + (0 if plane is None else plane.numel()) + route_bytes
     rec.entry(name, 1631, err,
-              _median_ms(lambda: fused.minimizer_tiles(*args, **kw), 5, 5, 2),
+              _median_ms(lambda: fused.minimizer_tiles(*args, **route_kw), 5, 5, 2),
               _median_ms(lambda: pipeline.minimizer_tiles_plain(*args[:7], tile, *args[7:], **kw),
                          *plain_reps),
               _bound(in_bytes + 4 * (planes * total + counts.numel()),
                      windows * ops_per_window))
-    del scratch, counts, offsets
+    del scratch, counts, offsets, route_kw
     return _median_ms(lambda: fused.fused_sketch(*args, **kw), 3, 3, 1)[0]
 
 
@@ -1211,10 +1243,14 @@ N_ORACLE_LARGE_W = 3 * 10**5  # chars of the oracle check of the other large-w p
 
 def _large_w(ctx):
     """Large w at 1e8 chars through Builder.run(device="cuda"): the large-w
-    route of minimizer_tiles. Each launch against its plain version at 1e7
-    chars, each path against the oracle (card and oracle on the same input;
-    the oracle is O(w) per window): canonical w = 32,767 at 1e6 chars, the
-    others at 3e5; the density of forward closed syncmers."""
+    route of minimizer_tiles, after its pre-pass kmer_top16. At 1e8 the
+    pre-pass and the route given its tops timed apart, each beside its
+    bound, and the wrapper (both); on the first path kmer_top16 against its
+    plain version and timed beside it (the kernels line). Each launch against
+    its plain version at 1e7 chars, kmer_top16 too, each path against the
+    oracle (card and oracle on the same input; the oracle is O(w) per
+    window): canonical w = 32,767 at 1e6 chars, the others at 3e5; the
+    density of forward closed syncmers."""
     import numpy as np
     import torch
 
@@ -1265,7 +1301,7 @@ def _large_w(ctx):
         out, wall, launched, peak = _main_path(
             lambda: b.run(s_in, ambiguous=mask if masked else None, device=dev))
         instance = fused.instance_name(b.canonical, mode, masked)
-        _expect_launches(name, launched, instance, 1)
+        _expect_launches(name, launched, instance, 1, top16=1)
         h = b._resolved_hasher()
         text_in = inp == "text"
         (kind, canonical, rot), tables = convert.hasher_tensors(h, dev, text_in)
@@ -1294,12 +1330,33 @@ def _large_w(ctx):
         pt = _median_ms(lambda: fused.fused_sketch(*args, **kw), 3, 3, 1)
         ops = _tiles_ops_per_window(k, canonical, kind, text_in, masked)
         planes = 2 if mode == SKM else 1
-        bound = _bound((N if text_in else N / 4) + (N / 8 if masked else 0)
-                       + 4 * (planes * count + -(-nw // fused.TILE)), nw * ops)
+        out_bytes = 4 * (planes * count + -(-nw // fused.TILE))
+        in_bytes = (N if text_in else N / 4) + (N / 8 if masked else 0)
+        bound = _bound(in_bytes + out_bytes, nw * ops)
+        # the pre-pass and the route apart, each beside its bound
+        top_args = (chars, N, k, tables, rot, canonical)
+        tops = fused.kmer_top16(*top_args, **kw)
+        top_t = _median_ms(lambda: fused.kmer_top16(*top_args, **kw), 5, 5, 2)
+        top_bound = _top16_bound(N, k, canonical, kind, text_in)
+        if "kmer_top16" not in rec.entries:  # the first path: against the plain version
+            plain = pipeline.kmer_top16_plain(*top_args, **kw)
+            rec.entry("kmer_top16", "simd_minimizers_tpu/ops/fused.py:389",
+                      _max_abs_err(tops, plain), top_t,
+                      _median_ms(lambda: pipeline.kmer_top16_plain(*top_args, **kw), 3, 1, 0),
+                      top_bound, source="top16.cu")
+            del plain
+        route_t = _median_ms(lambda: fused.minimizer_tiles(*args, **kw, top16=tops), 3, 3, 1)
+        route_bound = _bound(in_bytes + 2 * tops.numel() + out_bytes,
+                             nw * (ops - _hash_ops(k, canonical, kind)))
         print(f"  at {N} chars: minimizer_tiles {kt[0]:.4f} ms ({kt[1]:.4f}..{kt[2]:.4f}; "
               f"{kt[0] * 1e6 / N:.5f} ns/char), kernel path {pt[0]:.4f} ms; bound "
               f"{bound[0]:.4f} ms ({bound[1]}), {kt[0] / bound[0]:.1f}x; {note}")
-        del got, chars, plane, out
+        print(f"    of which kmer_top16 {top_t[0]:.4f} ms ({top_t[1]:.4f}..{top_t[2]:.4f}; bound "
+              f"{top_bound[0]:.4f} ms, {top_bound[1]}, {top_t[0] / top_bound[0]:.2f}x) and the "
+              f"route given its tops {route_t[0]:.4f} ms ({route_t[1]:.4f}..{route_t[2]:.4f}; "
+              f"bound {route_bound[0]:.4f} ms, {route_bound[1]}, "
+              f"{route_t[0] / route_bound[0]:.1f}x)")
+        del got, chars, plane, out, tops
 
         # each kernel against its plain version at 1e7 chars
         m = N_LARGE_CHECK
@@ -1310,8 +1367,8 @@ def _large_w(ctx):
         kt1 = _tiles_check(rec, instance + variant,
                            (sub_chars, m, k, w, tables, rot, canonical, mode, sub_plane), kw,
                            ops, plain_reps=(2, 1, 0))
-        print(f"  at {m} chars: each kernel bit-equal to its plain version; kernel path "
-              f"{kt1:.4f} ms")
+        print(f"  at {m} chars: each kernel bit-equal to its plain version, kmer_top16 too; "
+              f"kernel path {kt1:.4f} ms")
         del sub_chars, sub_plane
         torch.cuda.empty_cache()
 

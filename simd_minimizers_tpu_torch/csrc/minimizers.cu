@@ -11,7 +11,7 @@
 // holds an ambiguous char, adjacent dedup on the raw stream (SKIPPED
 // included) with SKIPPED dropped after it, syncmer predicates without dedup.
 //
-// Three launches:
+// Three launches (four on the large-w route, kmer_top16 first):
 //   1. minimizer_tiles<CANONICAL, MODE, AMB>: one block per tile of TILE
 //      windows. It reads the tile's chars (plus an l+3 char halo) straight
 //      from the plain 2-bit byte stream, or one char per byte (`bytes_in`):
@@ -21,7 +21,8 @@
 //      and the batch engine produce, shipped without host packing), one
 //      char per shared byte either way, and with AMB the ambiguity bits of
 //      the same chars from a 1-bit plane; hashes
-//      every k-mer with an O(1) rolling update per thread run, takes the
+//      every k-mer with an O(1) rolling update per thread run (on the
+//      large-w route it reads kmer_top16's 16-bit tops instead), takes the
 //      packed (top16 | column) sliding minima, the strand blend, the
 //      SKIPPED mask and the keep mask of MODE (recomputing the sel of the
 //      window before the tile for the dedup, so no state crosses blocks),
@@ -58,9 +59,9 @@
 // plus 4 B reread, so at the density 2/(w+1) of random input it moves under
 // 3 B/char per plane: far below the card's 3.35 TB/s. The work is integer
 // ALU and shared memory: per k-mer a table lookup of the char pair (2-bit
-// input on the stored route; two lookups and funnel shifts for text and on
-// the large-w route) and a funnel shift (rolling hash, both strands;
-// antilex: two shifts and an or per strand),
+// input; two lookups and funnel shifts for text) and a funnel shift
+// (rolling hash, both strands; antilex: two shifts and an or per strand;
+// on the large-w route one 16-bit load of kmer_top16's array instead),
 // per window a sliding minimum per arm and a sliding T/G count. The function
 // itself needs about 29 operations per window canonical and 14 forward at
 // k=21 (chip_smoke.py's bound, with an O(1) sliding minimum). The design
@@ -102,13 +103,21 @@
 // - The large-w route (sub_tile T, a power of two <= min(w, TILE)) keeps the
 //   chars, two blocks of T keys per arm and one least key per window, so its
 //   shared memory no longer grows with w in keys: every w with TILE + w <=
-//   2^16 (the 16-bit column) fits. It hashes w + T k-mers per T windows and
+//   2^16 (the 16-bit column) fits. It hashes nothing: the pre-pass
+//   kmer_top16 (csrc/top16.cu, launched first by ops/fused.minimizer_tiles)
+//   writes the top 16 hash bits of every k-mer of the launch once, and the
+//   route reads the w + T of them that each block of T windows covers, as
+//   coalesced 16-byte loads of eight tops (consecutive threads on
+//   consecutive columns; the 132 resident tiles' columns, about 1.2 MB, stay
+//   in L2), and
+//   packs each into the (top16 | column) key of its arm, INVALID where the
+//   column's k-mer lies outside [0, n - k]. Before, it hashed those w + T
+//   k-mers per T windows itself (9 to 16 hashes a window at w = 32,767 and
+//   61,439, each with two table lookups), which one block per SM (canonical
+//   from w ~ 13,000; forward with a mask at w = 61,439) could not hide. It
 //   takes three mins per window (a suffix of block 0, the core's least key,
 //   a prefix of block 1), and counts the first window of each thread by a
-//   block scan instead of O(l) per thread. Where one block fills an SM
-//   (canonical from w ~ 13,000; forward with a mask at w = 61,439) the hash
-//   runs' latency is exposed, and the route keeps the hash step and k-mer
-//   test it had before the stored route's redesign (`key_wide`).
+//   block scan instead of O(l) per thread; it reads no table.
 //
 // tile_offsets is bound by latency, not by bytes: at 1e8 chars it scans
 // 24,415 counts (98 KB, 0.06 us of the card's bandwidth both ways), and one
@@ -297,7 +306,8 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
                 int bytes_in, int text, int antilex, const long long* __restrict__ table,
                 int rot, const uint8_t* __restrict__ amb, long long amb_nbytes, int sync_lo,
                 int sync_hi, uint32_t offset_arg, const int* __restrict__ meta, int sub_tile,
-                int passes, int* __restrict__ scratch, int* __restrict__ counts) {
+                int passes, const uint16_t* __restrict__ top16, int* __restrict__ scratch,
+                int* __restrict__ counts) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_warp[THREADS / 32];
 
@@ -330,11 +340,12 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
   // the fold's per-char values: forward tF[c], complement tR[c]
   uint32_t* tF = s_tg + tg_words(l, CANONICAL, T);
   uint32_t* tR = tF + (text ? TEXT_CHARS : CODES);
-  for (int i = tid; i < table_words(text, antilex); i += THREADS) tF[i] = (uint32_t)table[i];
+  if (!T)
+    for (int i = tid; i < table_words(text, antilex); i += THREADS) tF[i] = (uint32_t)table[i];
   // 2-bit input: the rolling step's value of each (outgoing, incoming)
   // char pair, both rotated, per strand (`hash_cols`)
   __shared__ uint32_t s_roll[2][CODES * CODES];
-  if (!text && !antilex && tid < CODES * CODES) {
+  if (!T && !text && !antilex && tid < CODES * CODES) {
     const int a = tid / CODES, b = tid % CODES;
     s_roll[0][tid] = rotl((uint32_t)table[a], rot) ^ rotl((uint32_t)table[b], k + rot);
     s_roll[1][tid] = rotl((uint32_t)table[CODES + a], k - 1 + rot) ^
@@ -393,10 +404,10 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
     __syncthreads();
   }
 
-  // B2 + B3 keys: each thread hashes a contiguous run of k-mers, the first
-  // in O(k) (O(min(k, 16)) for antilex), the rest by the rolling update
-  // (with `pairs`, one lookup of s_roll per strand and step), and hands
-  // each hash to put(column, hash). Keys pack the top 16 hash bits
+  // B2 + B3 keys of the stored route: each thread hashes a contiguous run
+  // of k-mers, the first in O(k) (O(min(k, 16)) for antilex), the rest by
+  // the rolling update (with `pairs`, one lookup of s_roll per strand and
+  // step), and hands each hash to put(column, hash). Keys pack the top 16 hash bits
   // with the column j (leftmost arm) or 0xFFFF - j (rightmost arm); k-mers
   // outside [0, n - k] get INVALID on both arms. Column j's k-mer starts at
   // s_c[j + 3].
@@ -454,14 +465,6 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
   };
   auto key_r = [&](int j, uint32_t hash) -> uint32_t {
     return j >= j_lo && j <= j_hi ? (hash & TOP16) | (0xFFFFu - (uint32_t)j) : INVALID;
-  };
-  // The large-w route keeps the 64-bit test of a column's k-mer and the two
-  // table lookups per rolling step: with the stored route's 32-bit bounds
-  // and char-pair lookup, its forward w = 61,439 masked path ran 7% slower
-  // on the H100 (PERF.md). key is the column's packed low 16 bits.
-  auto key_wide = [&](int j, uint32_t hash, uint32_t key) -> uint32_t {
-    const long long kp = t0 - 1 + j;
-    return kp >= 0 && kp <= (long long)n - k ? (hash & TOP16) | key : INVALID;
   };
 
   if (!T) {
@@ -538,31 +541,75 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
     // Window a - 1 covers columns [a, a + w - 1] = the suffix from a of
     // block 0 ([c0, c0 + T)), the core, and the first a - c0 columns of
     // block 1 ([c0 + w, c0 + w + T)). The blocks' keys are stored and
-    // scanned, the core's are hashed, reduced and never stored: per block
-    // of T windows w + T hashes, and three mins per window.
+    // scanned, the core's are reduced and never stored: per block of T
+    // windows w + T tops read from kmer_top16's array, and three mins per
+    // window. Column j's top is top16[t0 - 1 + j] (the launch's k-mer
+    // index; the u32 offset is added at emission only). A thread reads the
+    // tops of 8 columns from a k-mer index that is a multiple of 8 (t0 is
+    // one, so from a column j = 1 mod 8) as one 16-byte load, consecutive
+    // threads on consecutive columns.
     uint32_t* b0l = s_kl + (CANONICAL ? 2 : 1) * (TILE + 1);
     uint32_t* b1l = b0l + T;
     uint32_t* b0r = b1l + T;
     uint32_t* b1r = b0r + T;
+    const uint16_t* tops = top16 + t0;  // tops[j - 1] = top16[t0 - 1 + j]: column j's top
+    const bool aligned = (reinterpret_cast<uintptr_t>(top16) & 15) == 0;
+    // the tops of columns jp .. jp + 7, two to a word (column jp + q in half
+    // q & 1 of word q / 2), 0 for a column whose k-mer lies outside [0, n - k]
+    auto load8 = [&](int jp) -> uint4 {
+      if (aligned && jp >= j_lo && jp + 7 <= j_hi)
+        return __ldg(reinterpret_cast<const uint4*>(tops + jp - 1));
+      uint32_t x[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (jp + q >= j_lo && jp + q <= j_hi)
+          x[q / 2] |= (uint32_t)tops[jp + q - 1] << (q & 1 ? 16 : 0);
+      return make_uint4(x[0], x[1], x[2], x[3]);
+    };
     for (int c0 = 0; c0 < TILE; c0 += T) {
-      const int per = (w + T + THREADS - 1) / THREADS;
-      const int j0 = c0 + tid * per;
+      const int end = c0 + w + T;  // columns [c0, end)
       uint32_t cl = INVALID, cr = INVALID;
-      hash_cols(j0, min(j0 + per, c0 + w + T), false, [&](int j, uint32_t hash) {
-        const uint32_t kl = key_wide(j, hash, (uint32_t)j);
-        const uint32_t kr = CANONICAL ? key_wide(j, hash, 0xFFFFu - (uint32_t)j) : INVALID;
-        const int r = j - c0;
-        if (r < T) {
-          b0l[r] = kl;
-          if (CANONICAL) b0r[r] = kr;
-        } else if (r < w) {
-          cl = min(cl, kl);
-          if (CANONICAL) cr = min(cr, kr);
-        } else {
-          b1l[r - w] = kl;
-          if (CANONICAL) b1r[r - w] = kr;
+      // the keys of columns jp .. jp + 7: all of them in the core and live,
+      // only mins; else each to its block or the core, INVALID where the
+      // column's k-mer lies outside [0, n - k]
+      auto put8 = [&](int jp, uint4 v) {
+        auto top_of = [&](int q) -> uint32_t {  // column jp + q's top in bits 16..31
+          const uint32_t x = q < 4 ? (q < 2 ? v.x : v.y) : (q < 6 ? v.z : v.w);
+          return q & 1 ? x & TOP16 : x << 16;
+        };
+        if (jp - c0 >= T && jp + 7 - c0 < w && jp >= j_lo && jp + 7 <= j_hi) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const uint32_t top = top_of(q);
+            cl = min(cl, top | (uint32_t)(jp + q));
+            if (CANONICAL) cr = min(cr, top | (0xFFFFu - (uint32_t)(jp + q)));
+          }
+          return;
         }
-      });
+        // not unrolled: unrolled, the masked instances took 77 registers instead of
+        // 64 (canonical) and their w = 11 paths ran up to 8% slower on an H100
+#pragma unroll 1
+        for (int q = 0; q < 8; ++q) {
+          const int j = jp + q, r = j - c0;
+          if (r < 0 || r >= w + T) continue;
+          const bool live = j >= j_lo && j <= j_hi;
+          const uint32_t top = top_of(q);
+          const uint32_t kl = live ? top | (uint32_t)j : INVALID;
+          const uint32_t kr = CANONICAL && live ? top | (0xFFFFu - (uint32_t)j) : INVALID;
+          if (r < T) {
+            b0l[r] = kl;
+            if (CANONICAL) b0r[r] = kr;
+          } else if (r < w) {
+            cl = min(cl, kl);
+            if (CANONICAL) cr = min(cr, kr);
+          } else {
+            b1l[r - w] = kl;
+            if (CANONICAL) b1r[r - w] = kr;
+          }
+        }
+      };
+      const int js = c0 - ((c0 - 1) & 7);  // the column = 1 mod 8 at or just before c0
+      for (int jp = js + 8 * tid; jp < end; jp += 8 * THREADS) put8(jp, load8(jp));
       cl = block_min(cl, s_warp);  // its barriers also end the block stores
       if (CANONICAL) cr = block_min(cr, s_warp);
       block_min_scan(b0l, T, true, s_warp);
@@ -832,7 +879,7 @@ tile_append(const int* __restrict__ scratch, const int* __restrict__ counts,
 
 using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, int, int, int,
                              const long long*, int, const uint8_t*, long long, int, int,
-                             uint32_t, const int*, int, int, int*, int*);
+                             uint32_t, const int*, int, int, const uint16_t*, int*, int*);
 
 // The instances built; null for a mode that has none.
 template <bool C>
@@ -892,27 +939,32 @@ int smt_init(int device) {
 // n and offset (a CUDA-graph capture's launch, n at most the n given here).
 // sub_tile: 0 for the stored route, else the large-w route's block of
 // columns, a power of two <= min(w, TILE). passes: the stored route's
-// doubling passes, 2^passes <= w (0 on the large-w route). scratch holds
-// ntiles * TILE ints per plane (two for super-k-mers).
+// doubling passes, 2^passes <= w (0 on the large-w route). top16: on the
+// large-w route kmer_top16's tops of k-mers 0 .. n - k of the same chars
+// (csrc/top16.cu), required (null returns an error: the route never hashes);
+// null on the stored route. scratch holds ntiles * TILE ints per plane (two
+// for super-k-mers).
 int smt_minimizer_tiles(int device, const void* words, long long nbytes, int n, int k, int w,
                         int canonical, int mode, int bytes_in, int text, int antilex,
                         const void* table, int rot, const void* amb, long long amb_nbytes,
                         int sync_lo, int sync_hi, unsigned int offset, const void* meta,
-                        int sub_tile, int passes, void* scratch, void* counts, int ntiles,
-                        void* stream) {
+                        int sub_tile, int passes, const void* top16, void* scratch, void* counts,
+                        int ntiles, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const TilesKernel kern = tiles_instance(canonical != 0, mode, amb != nullptr);
   if (kern == nullptr || (table == nullptr && !antilex) || (text && !bytes_in) ||
       sub_tile < 0 || sub_tile > TILE || (sub_tile & (sub_tile - 1)) || sub_tile > w ||
-      passes < 0 || passes > 30 || (sub_tile ? passes != 0 : (1 << passes) > w))
+      passes < 0 || passes > 30 || (sub_tile ? passes != 0 : (1 << passes) > w) ||
+      (sub_tile != 0) != (top16 != nullptr) || (reinterpret_cast<uintptr_t>(top16) & 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(k, w, canonical != 0, mode, amb != nullptr, text != 0,
                                       antilex != 0, sub_tile);
   kern<<<ntiles, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)words, nbytes, n, k, w, bytes_in, text, antilex,
       (const long long*)table, rot, (const uint8_t*)amb, amb_nbytes, sync_lo, sync_hi,
-      (uint32_t)offset, (const int*)meta, sub_tile, passes, (int*)scratch, (int*)counts);
+      (uint32_t)offset, (const int*)meta, sub_tile, passes, (const uint16_t*)top16,
+      (int*)scratch, (int*)counts);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 
 Counterpart of `simd_minimizers_tpu/ops/device_sketcher.ShortSeqSketcher`.
 Where the JAX class compiles one program ahead of time, this one captures
-the three kernels of one launch (`minimizer_tiles` -> `tile_offsets` ->
-`tile_append`) once in a `torch.cuda.CUDAGraph` over static buffers: the
+the kernels of one launch (`minimizer_tiles` -> `tile_offsets` ->
+`tile_append`, with `kmer_top16` first where w takes the large-w route)
+once in a `torch.cuda.CUDAGraph` over static buffers: the
 code bytes of up to `max_chars` chars, and an int32 pair (length, offset
 bits) that the kernel reads on the card in place of its by-value n and
 offset. One capture thus serves every length and offset, and a call is a
@@ -67,7 +68,8 @@ class ShortSeqSketcher:
 
     def _capture(self) -> None:
         """The library and each card's shared-memory limits are set up
-        before the capture; then one launch over the static buffers."""
+        before the capture; then one launch over the static buffers (on the
+        large-w route the pre-pass's array comes from the graph's pool)."""
         dev = self.device
         fused._library(dev)
         # the length and offset bits (8 bytes), then the codes: one copy in
@@ -82,11 +84,14 @@ class ShortSeqSketcher:
             self._offsets = fused.tile_offsets(counts)
             self._out = fused.tile_append(scratch, counts, self._offsets, None)
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self._launched = (fused.instance_name(self._args[4], self.mode, False),
+        large_w = fused.sub_tile(self.k, self.w, self._args[4], self.mode,
+                                 kind=self._kw["kind"]) != 0
+        self._launched = (*(("kmer_top16",) if large_w else ()),
+                          fused.instance_name(self._args[4], self.mode, False),
                           "tile_offsets", "tile_append")
 
     def _replay(self) -> None:
-        """One replay: the three kernels, each counted in fused.LAUNCHES."""
+        """One replay: its kernels, each counted in fused.LAUNCHES."""
         self._graph.replay()
         for name in self._launched:
             fused.LAUNCHES[name] += 1

@@ -5,9 +5,10 @@ into launches.
 Counterpart of `simd_minimizers_tpu/ops/fused.py` (`fused_supported`,
 `_invoke_pallas`, `_fused_launch`, `_fused_harvest`, `fused_sketch`,
 `_LaunchWave`, `sketch_long`, `sketch_records`). The kernels are
-`csrc/minimizers.cu`; see its header for the design. They read the plain
-2-bit byte stream, 2-bit codes one per byte, or the raw text bytes, so the
-TPU's row- and byte-striped repacks have no counterpart here.
+`csrc/minimizers.cu` and `csrc/top16.cu`; see their headers for the
+design. They read the plain 2-bit byte stream, 2-bit codes one per byte,
+or the raw text bytes, so the TPU's row- and byte-striped repacks have no
+counterpart here.
 
 `fused_sketch` is `_fused_launch` (`minimizer_tiles`, `tile_offsets`; no
 host sync) then `_fused_harvest` (the total, `tile_append`): three
@@ -15,8 +16,11 @@ wrappers, one per kernel. `minimizer_tiles` takes its stored route (every
 key of the tile, `min_passes(w)` doubling passes, O(log w) per window)
 below w = LARGE_W_MIN and its large-w route (O(1) mins per window) from
 there on, so that every w with TILE + w <= 2^16 fits a block's shared
-memory (`sub_tile`); it and `tile_append` can
-also read the length and the total on the card, for a CUDA-graph capture
+memory (`sub_tile`). On the large-w route it first launches a fourth
+kernel, `kmer_top16`, which writes the top 16 hash bits of every k-mer
+once, and the route reads them instead of hashing w + T k-mers per T
+windows. `minimizer_tiles`, `kmer_top16` and `tile_append` can also read
+the length and the total on the card, for a CUDA-graph capture
 (ops/device_sketcher.py). On a CUDA tensor each launches its kernel or
 raises; on a CPU tensor each runs its plain version (`ops/pipeline.py`).
 `minimizer_tiles` has one kernel instance per strand, mode family
@@ -85,7 +89,7 @@ LAUNCHES = {instance_name(c, m, a): 0
             for m in (pipeline.MODE_MINIMIZERS, pipeline.MODE_SUPERKMERS,
                       pipeline.MODE_CLOSED_SYNCMERS)
             for a in (False, True) for c in (True, False)}
-LAUNCHES.update({"tile_offsets": 0, "tile_append": 0})
+LAUNCHES.update({"kmer_top16": 0, "tile_offsets": 0, "tile_append": 0})
 MAX_LAUNCH_CHARS = 1 << 31  # chars of one launch: in-kernel values are below 2^31
 MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 
@@ -160,8 +164,8 @@ def _check(err: int, what: str) -> None:
 
 def _library(device: torch.device):
     """The kernel library, set up once per card, before any CUDA-graph
-    capture (TILE agreement, every minimizer_tiles instance's shared-memory
-    limit, tile_offsets' zeroed status words)."""
+    capture (TILE agreement, every minimizer_tiles and kmer_top16
+    instance's shared-memory limit, tile_offsets' zeroed status words)."""
     lib = _build.library()
     if device.index not in _ready_devices:
         if torch.cuda.is_current_stream_capturing():
@@ -170,6 +174,7 @@ def _library(device: torch.device):
         if lib.smt_tile_windows() != TILE:
             raise RuntimeError("csrc/minimizers.cu TILE disagrees with ops/fused.py")
         _check(lib.smt_init(device.index), "smt_init")
+        _check(lib.smt_top16_init(device.index), "smt_top16_init")
         _scan_status[device.index] = torch.zeros(2 + MAX_LAUNCH_CHARS // TILE // SCAN_BLOCK,
                                                  dtype=torch.int64, device=device)
         _ready_devices.add(device.index)
@@ -202,11 +207,68 @@ def _check_tables(tables: torch.Tensor | None, kind: str, text: bool) -> None:
                          f"{'text' if text else '2-bit'} input, got {got}")
 
 
+def _check_meta(meta: torch.Tensor | None, chars: torch.Tensor) -> None:
+    if meta is not None and (meta.dtype != torch.int32 or meta.shape != (2,)
+                             or meta.device.type != "cuda" or meta.device != chars.device):
+        raise ValueError("meta must be an int32 (2,) tensor on the card of chars")
+
+
+def _check_card_chars(chars: torch.Tensor, n: int, tables: torch.Tensor | None,
+                      bytes_in: bool) -> None:
+    """A card launch's chars and tables: contiguous, on one device, n chars."""
+    if not chars.is_contiguous() or (tables is not None and not tables.is_contiguous()):
+        raise ValueError("chars and tables must be contiguous")
+    if chars.numel() * (1 if bytes_in else 4) < n:
+        raise ValueError(f"chars must hold n={n} chars")
+    if tables is not None and tables.device != chars.device:
+        raise ValueError("tables and chars must be on one device")
+
+
+def kmer_top16(chars: torch.Tensor, n: int, k: int, tables: torch.Tensor | None,
+               rot_offset: int, canonical: bool, *, text: bool = False, kind: str = "nt",
+               byte_codes: bool = False, meta: torch.Tensor | None = None) -> torch.Tensor:
+    """The large-w route's pre-pass: the top 16 bits of the hash of each
+    k-mer 0 .. n - k of the first n chars of `chars` (as in
+    `minimizer_tiles`), (max(n - k + 1, 0),) int16 holding the u16 bits.
+    With `meta` (on the card only) the kernel reads the length from meta[0]
+    and writes the tops of that many chars' k-mers; n sizes the array and
+    bounds the length.
+
+    Inside a CUDA-graph capture the launch is not counted in LAUNCHES."""
+    if chars.dtype != torch.uint8:
+        raise TypeError(f"chars must be uint8, got {chars.dtype}")
+    if text and byte_codes:
+        raise ValueError("chars are text bytes or 2-bit code bytes, not both")
+    if n >= MAX_LAUNCH_CHARS:
+        raise AssertionError("fused kernel handles < 2^31 chars per call (see sketch_long)")
+    _check_tables(tables, kind, text)
+    _check_meta(meta, chars)
+    if _device_kind(chars) == "cpu":
+        return pipeline.kmer_top16_plain(chars, n, k, tables, rot_offset, canonical, text=text,
+                                         kind=kind, byte_codes=byte_codes)
+    bytes_in = text or byte_codes
+    _check_card_chars(chars, n, tables, bytes_in)
+    dev = chars.device
+    out = torch.empty(max(n - k + 1, 0), dtype=torch.int16, device=dev)
+    if out.numel() == 0:  # no k-mer: nothing to launch
+        return out
+    lib = _library(dev)
+    _check(lib.smt_kmer_top16(
+        dev.index, chars.data_ptr(), chars.numel(), n, k, int(canonical), int(bytes_in),
+        int(text), int(kind == "antilex"), None if tables is None else tables.data_ptr(),
+        rot_offset, None if meta is None else meta.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "kmer_top16")
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["kmer_top16"] += 1
+    return out
+
+
 def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                     rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                     ambiguous: torch.Tensor | None = None, *, text: bool = False,
                     kind: str = "nt", offset: int = 0, byte_codes: bool = False,
-                    meta: torch.Tensor | None = None, passes: int | None = None):
+                    meta: torch.Tensor | None = None, passes: int | None = None,
+                    top16: torch.Tensor | None = None):
     """Kernel 1: (scratch, counts) for the first n chars of `chars` (uint8:
     the 2-bit byte stream of convert.packed_words, with `byte_codes` 2-bit
     codes one per byte, of which the low two bits count, or with `text` the
@@ -223,7 +285,11 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     (ops/device_sketcher.py; on the card only); n then sizes the launch and
     bounds the length. `passes` sets the stored route's doubling passes
     (default `min_passes(w)`; 2^passes <= w), which change its time, not
-    its result.
+    its result. On the large-w route (`sub_tile`) a CUDA launch first runs
+    `kmer_top16` on the same chars (with `meta`) on the current stream and
+    the route reads its tops; `top16` passes that array instead (int16,
+    n - k + 1 values; to time the route apart), and is refused on the
+    stored route. The CPU's plain version hashes on both routes.
 
     Inside a CUDA-graph capture the launch is not counted in LAUNCHES: each
     replay of the graph counts it."""
@@ -249,25 +315,22 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
             "for the 16-bit column keys, and the tile in shared memory); wider geometry is "
             "ROADMAP A12")
     _check_tables(tables, kind, text)
-    if meta is not None and (meta.dtype != torch.int32 or meta.shape != (2,)
-                             or meta.device.type != "cuda" or meta.device != chars.device):
-        raise ValueError("meta must be an int32 (2,) tensor on the card of chars")
+    _check_meta(meta, chars)
     t = sub_tile(k, w, canonical, mode, ambiguous is not None, text, kind)
     if passes is None:
         passes = 0 if t else min_passes(w)
     elif t or not 0 <= passes or 1 << passes > w:
         raise ValueError(f"passes={passes}: the stored route takes 2^passes <= w = {w}")
+    if top16 is not None and (not t or top16.dtype != torch.int16 or not top16.is_contiguous()
+                              or top16.device != chars.device or top16.numel() < n - k + 1):
+        raise ValueError("top16 is read on the large-w route only: a contiguous int16 tensor "
+                         f"of n - k + 1 = {n - k + 1} tops on the device of chars")
     if _device_kind(chars) == "cpu":
         return pipeline.minimizer_tiles_plain(chars, n, k, w, tables, rot_offset, canonical, TILE,
                                               mode, ambiguous, text=text, kind=kind,
                                               offset=offset, byte_codes=byte_codes)
-    if not chars.is_contiguous() or (tables is not None and not tables.is_contiguous()):
-        raise ValueError("chars and tables must be contiguous")
     bytes_in = text or byte_codes
-    if chars.numel() * (1 if bytes_in else 4) < n:
-        raise ValueError(f"chars must hold n={n} chars")
-    if tables is not None and tables.device != chars.device:
-        raise ValueError("tables and chars must be on one device")
+    _check_card_chars(chars, n, tables, bytes_in)
     if ambiguous is not None and (not ambiguous.is_contiguous() or ambiguous.numel() * 8 < n):
         raise ValueError("ambiguous must be contiguous and hold a bit for each of the n chars")
     dev = chars.device
@@ -279,6 +342,9 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
     if ntiles == 0:  # no window: nothing to launch
         return scratch, counts
     lib = _library(dev)
+    if t and top16 is None:
+        top16 = kmer_top16(chars, n, k, tables, rot_offset, canonical, text=text, kind=kind,
+                           byte_codes=byte_codes, meta=meta)
     lo, hi = pipeline.syncmer_offsets(mode, w)
     _check(lib.smt_minimizer_tiles(
         dev.index, chars.data_ptr(), chars.numel(), n, k, w, int(canonical), _KERNEL_MODE[mode],
@@ -287,7 +353,7 @@ def minimizer_tiles(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.T
         None if ambiguous is None else ambiguous.data_ptr(),
         0 if ambiguous is None else ambiguous.numel(), lo, hi, offset,
         None if meta is None else meta.data_ptr(), t, passes,
-        scratch.data_ptr(), counts.data_ptr(), ntiles,
+        None if top16 is None else top16.data_ptr(), scratch.data_ptr(), counts.data_ptr(), ntiles,
         torch.cuda.current_stream(dev).cuda_stream),
         "minimizer_tiles")
     if not torch.cuda.is_current_stream_capturing():
@@ -389,9 +455,10 @@ def fused_sketch(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tens
     1-bit plane `ambiguous`; for super-k-mers (positions, first-window
     indices): `_fused_launch`, then `_fused_harvest`.
 
-    A CUDA tensor goes through the three kernels, a CPU tensor through their
-    plain versions; any other device raises. Fewer than l = k + w - 1 chars
-    give an empty result without a launch.
+    A CUDA tensor goes through the three kernels (four on the large-w
+    route, `kmer_top16` first), a CPU tensor through their plain versions;
+    any other device raises. Fewer than l = k + w - 1 chars give an empty
+    result without a launch.
     """
     return _fused_harvest(_fused_launch(chars, n, k, w, tables, rot_offset, canonical, mode,
                                         ambiguous, text=text, kind=kind, offset=offset,

@@ -282,8 +282,25 @@ def run_pipeline(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tens
     return tuple(out) if mode == MODE_SUPERKMERS else out[0]
 
 
-# Plain versions of the three CUDA kernels (csrc/minimizers.cu), one each,
-# with the kernels' inputs and outputs. Chained, they give run_pipeline.
+# Plain versions of the CUDA kernels (csrc/minimizers.cu, csrc/top16.cu),
+# one each, with the kernels' inputs and outputs. Chained, the first three
+# give run_pipeline; kmer_top16 is the large-w route's pre-pass, whose tops
+# the route reads in place of hashing.
+
+def kmer_top16_plain(chars: torch.Tensor, n: int, k: int, tables: torch.Tensor | None,
+                     rot_offset: int, canonical: bool, *, text: bool = False,
+                     kind: str = "nt", byte_codes: bool = False) -> torch.Tensor:
+    """The top 16 bits of the hash of each k-mer 0 .. n - k of the first n
+    chars of `chars` (as in `kept_windows`): (max(n - k + 1, 0),) int16
+    holding the u16 bits, the top half of `kmer_hashes_2d` on one row."""
+    if n < k:
+        return torch.zeros(0, dtype=torch.int16, device=chars.device)
+    M = unpack_chars(chars, n, text, byte_codes)[None, :]
+    h = kmer_hashes_2d(M, None if tables is None else tables.to(chars.device), k, rot_offset,
+                       canonical, n, kind)[0]
+    top = h >> 16
+    return torch.where(top >= 1 << 15, top - (1 << 16), top).to(torch.int16)
+
 
 def minimizer_tiles_plain(chars: torch.Tensor, n: int, k: int, w: int,
                           tables: torch.Tensor | None, rot_offset: int, canonical: bool, tile: int,

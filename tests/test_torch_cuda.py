@@ -1034,6 +1034,122 @@ def test_stored_route_any_pass_count(dev, slack, w):
         _assert_planes(got.cpu().numpy(), want.cpu().numpy(), _oracle(codes, k, w, h))
 
 
+# -- the large-w route's pre-pass (csrc/top16.cu) ----------------------------
+
+TOP16_KINDS = {"nt": NtHasher, "mul": MulHasher, "antilex": AntiLexHasher}
+TOP16_N = [0, 1, 10_000, 3 * 8192 + 5, 200_003]  # chars past k - 1: across the blocks' seams
+
+
+@pytest.mark.parametrize("kind", list(TOP16_KINDS))
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 21, 31, 64])
+def test_kmer_top16_vs_plain(dev, kind, canonical, k):
+    """The pre-pass against its plain version on the card (exact) at
+    n in {k - 1, k, 10,000, ...} on the 2-bit byte stream, code bytes (high
+    bits set, also from an odd byte) and text; and with `meta` over a
+    buffer sized for more chars."""
+    rng = np.random.default_rng(k + 100 * canonical)
+    h = TOP16_KINDS[kind](k, canonical=canonical)
+    for n in (k - 1 + d for d in TOP16_N):
+        codes = rng.integers(0, 4, n, dtype=np.uint8)
+        text = rng.integers(0, 256, n, dtype=np.uint8)
+        odd = convert.code_bytes(np.concatenate([[7], codes | 0xF0]).astype(np.uint8), dev)[1:]
+        inputs = [(convert.packed_words(PackedSeqVec.from_codes(codes), dev), {}),
+                  (convert.code_bytes(codes | 0xF0, dev), {"byte_codes": True}),
+                  (odd, {"byte_codes": True}),
+                  (convert.text_bytes(GenericSeq(text), dev), {"text": True})]
+        for chars, kw in inputs:
+            is_text = kw.get("text", False)
+            (kd, can, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev, is_text)
+            got = fused.kmer_top16(chars, n, k, tables, rot, can, kind=kd, **kw)
+            want = pipeline.kmer_top16_plain(chars, n, k, tables, rot, can, kind=kd, **kw)
+            assert got.dtype == torch.int16 and torch.equal(got, want), (n, kw)
+            if not is_text:
+                ref = (h.hash_kmers_np(codes) >> 16).astype(np.uint16)
+                np.testing.assert_array_equal(got.cpu().numpy().view(np.uint16), ref)
+    # meta: the length read on the card, the array sized by the buffer
+    cap = k - 1 + 3 * 8192 + 5
+    codes = rng.integers(0, 4, cap, dtype=np.uint8)
+    chars = convert.code_bytes(codes, dev)
+    (kd, can, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev)
+    for n in (cap, k + 8192, k, k - 1):
+        meta = torch.tensor([n, 0], dtype=torch.int32, device=dev)
+        got = fused.kmer_top16(chars, cap, k, tables, rot, can, kind=kd, byte_codes=True,
+                               meta=meta)
+        want = pipeline.kmer_top16_plain(chars, n, k, tables, rot, can, kind=kd, byte_codes=True)
+        assert got.numel() == cap - k + 1 and torch.equal(got[:want.numel()], want)
+
+
+def test_large_w_route_reads_the_prepass(dev):
+    """On the card the large-w route launches kmer_top16 once per launch
+    and the stored route never does; the route reads the array it is given
+    (tops of all zero move the minima), which the stored route refuses."""
+    k, w = 22, 8192
+    codes = np.random.default_rng(4).integers(0, 4, 2 * TILE + k + w + 100, dtype=np.uint8)
+    args, kw = _args(codes, k, w, NtHasher(k, canonical=True), dev)
+    stored, stored_kw = _args(codes, 21, 11, NtHasher(21), dev)
+    before = fused.LAUNCHES["kmer_top16"]
+    fused.fused_sketch(*stored, **stored_kw)
+    assert fused.LAUNCHES["kmer_top16"] == before
+    want = fused.fused_sketch(*args, **kw)
+    assert fused.LAUNCHES["kmer_top16"] == before + 1
+    tops = fused.kmer_top16(*args[:3], *args[4:7], kind=kw["kind"])
+    for given, equal in ((tops, True), (torch.zeros_like(tops), False)):
+        scratch, counts = fused.minimizer_tiles(*args, **kw, top16=given)
+        got = fused._fused_harvest((scratch, counts, fused.tile_offsets(counts)),
+                                   pipeline.MODE_MINIMIZERS)
+        assert torch.equal(got, want) == equal
+    assert fused.LAUNCHES["kmer_top16"] == before + 2
+    with pytest.raises(ValueError, match="top16"):
+        fused.minimizer_tiles(*stored, **stored_kw, top16=tops)
+
+
+def test_large_w_route_without_tops_is_refused(dev):
+    """smt_minimizer_tiles on the large-w route with no top16 array returns
+    an error (the route never hashes); so does an array on the stored route."""
+    k, w = 21, 8192
+    codes = np.random.default_rng(5).integers(0, 4, TILE + k + w, dtype=np.uint8)
+    (chars, n, _, _, tables, rot, canonical, _, _), _ = _args(codes, k, w, NtHasher(k), dev)
+    dev = chars.device
+    lib = fused._library(dev)
+    scratch = torch.empty(TILE, dtype=torch.int32, device=dev)
+    counts = torch.empty(1, dtype=torch.int32, device=dev)
+    tops = torch.zeros(n, dtype=torch.int16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for sub_tile, w_, passes, top16 in ((4096, w, 0, None), (0, 11, 2, tops)):
+        err = lib.smt_minimizer_tiles(
+            dev.index, chars.data_ptr(), chars.numel(), n, k, w_, 0, 0, 0, 0, 0,
+            tables.data_ptr(), rot, None, 0, 0, 0, 0, None, sub_tile, passes,
+            None if top16 is None else top16.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
+            1, stream)
+        assert err != 0
+    torch.cuda.synchronize()
+
+
+def test_short_seq_sketcher_large_w(dev):
+    """A ShortSeqSketcher at w = 8,192 (the large-w route, in its graph):
+    each replay counts four launches, kmer_top16 among them, and every
+    result equals the oracle, with the length read on the card."""
+    from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher
+
+    k, w = 22, 8192
+    h = NtHasher(k, canonical=True)
+    sk = ShortSeqSketcher(k, w, convert.hasher_from(h), device=dev)
+    rng = np.random.default_rng(23)
+    lens = [k + w - 2, k + w - 1, k + w + 4096, sk.max_chars, 5000 + w]
+    seqs = [rng.integers(0, 4, n, dtype=np.uint8) for n in lens]
+    before = dict(fused.LAUNCHES)
+    outs = sk.sketch_many(seqs)
+    ran = sum(s.size >= k + w - 1 for s in seqs)
+    grew = {key: fused.LAUNCHES[key] - before[key] for key in before}
+    name = fused.instance_name(True, pipeline.MODE_MINIMIZERS, False)
+    assert {key: c for key, c in grew.items() if c} == {
+        "kmer_top16": ran, name: ran, "tile_offsets": ran, "tile_append": ran}
+    for s, got in zip(seqs, outs, strict=True):
+        want = _oracle(s, k, w, h) if s.size >= k + w - 1 else np.zeros(0, np.uint32)
+        np.testing.assert_array_equal(got, want)
+
+
 # -- k-mer values on the card (csrc/values.cu) ------------------------------
 
 VALUE_KS = [1, 2, 5, 15, 16, 17, 21, 31, 32, 33, 48, 63, 64]
