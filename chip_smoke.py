@@ -102,8 +102,11 @@ Then the paths of the last slices:
   1e7 chars, kmer_top16 too, each path against the oracle (O(w) per window:
   canonical w = 32,767 at 1e6 chars, the others at 3e5), the density of
   forward closed syncmers against 2/w; at 1e8 the time and bound of the
-  pre-pass, of the route given its tops and of both, and on the first path
-  kmer_top16 against its plain version (its kernels-line entry);
+  pre-pass, of the route given its tops (beside its time before its
+  conflict-free scan and T/G plane) and of both, the route's dynamic shared
+  memory a block and blocks per SM (the occupancy query), the main path's
+  peak extra device memory, and on the first path kmer_top16 against its
+  plain version (its kernels-line entry);
 - `ShortSeqSketcher` (one captured CUDA graph, canonical k=21 w=11):
   `sketch_many` of 10,000 random sequences of 30-8,222 chars, each
   against the oracle, launches counted per replay; `measure_floor` at
@@ -1239,6 +1242,11 @@ def _collect(b, sel, masked: bool):
 
 
 N_ORACLE_LARGE_W = 3 * 10**5  # chars of the oracle check of the other large-w paths
+# each large-w path's route given its tops at 1e8 chars before the route
+# scanned its blocks without bank conflicts and read its chars as a T/G bit
+# plane (ms; this script on an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md
+# section 5), printed beside this run's
+ROUTE_MS_BEFORE = [6.6486, 5.5819, 3.4580, 6.6620, 2.9574, 6.1364, 6.1557]
 
 
 def _large_w(ctx):
@@ -1292,12 +1300,15 @@ def _large_w(ctx):
     small_mask = np.zeros(N_ORACLE, bool)
     small_mask[small_rng.integers(0, N_ORACLE, 20)] = True
     sels = {}
-    for name, b, masked, inp, density_want, n_oracle in paths:
+    for (name, b, masked, inp, density_want, n_oracle), before in zip(paths, ROUTE_MS_BEFORE,
+                                                                       strict=True):
         w, mode = b.w, b._mode
         l = k + w - 1
         s_in = text if inp == "text" else seq
-        print(f"large w: {name}, k={k} w={w} ({inp}; sub_tile "
-              f"{fused.sub_tile(k, w, b.canonical, mode, masked, inp == 'text')}):")
+        geometry = (k, w, b.canonical, mode, masked, inp == "text", b._resolved_hasher().kind)
+        blocks, smem = fused.tiles_occupancy(*geometry, device=dev)
+        print(f"large w: {name}, k={k} w={w} ({inp}; sub_tile {fused.sub_tile(*geometry)}; "
+              f"{smem} B of dynamic shared memory a block, {blocks} blocks per SM):")
         out, wall, launched, peak = _main_path(
             lambda: b.run(s_in, ambiguous=mask if masked else None, device=dev))
         instance = fused.instance_name(b.canonical, mode, masked)
@@ -1355,7 +1366,8 @@ def _large_w(ctx):
               f"{top_bound[0]:.4f} ms, {top_bound[1]}, {top_t[0] / top_bound[0]:.2f}x) and the "
               f"route given its tops {route_t[0]:.4f} ms ({route_t[1]:.4f}..{route_t[2]:.4f}; "
               f"bound {route_bound[0]:.4f} ms, {route_bound[1]}, "
-              f"{route_t[0] / route_bound[0]:.1f}x)")
+              f"{route_t[0] / route_bound[0]:.1f}x; before the conflict-free scan and the T/G "
+              f"plane {before:.4f} ms, {route_t[0] / before:.3f}x)")
         del got, chars, plane, out, tops
 
         # each kernel against its plain version at 1e7 chars

@@ -16,7 +16,9 @@ the same seed, with CUDA events:
   where it is the longer), and device time per call in a CUDA graph of 20
   calls, replayed; `torch.cumsum` the same two ways beside it;
 - `minimizer_tiles` on the seven large-w paths of chip_smoke.py at 1e8
-  chars: median of 5 batches of 3 calls;
+  chars: median of 5 batches of 3 calls; where the checkout's wrapper takes
+  `top16`, also the route given the pre-pass's tops (the same median), and
+  where it has `tiles_occupancy`, the blocks per SM of the launch;
 - the `ShortSeqSketcher` replay at 8,192 chars (`measure_floor`'s
   replay_us, canonical k=21 w=11).
 With --passes, in its first round, each DIR whose `minimizer_tiles` takes
@@ -44,15 +46,17 @@ HERE = Path(__file__).resolve().parent
 N = 10**8
 K, W = 21, 11
 SPAN_TILES = 1 << 17
-# (name, canonical, w, mode, chromosome mask, text): chip_smoke.py's large-w paths
+# (name, canonical, w, mode, chromosome mask, input): chip_smoke.py's large-w
+# paths ("dna": the 2-bit byte stream), and canonical code bytes, one a base
 LARGE_W = [
-    ("canonical w=32767", True, 32_767, "minimizers", False, False),
-    ("forward w=61439 masked", False, 61_439, "minimizers", True, False),
-    ("text mul w=32767", False, 32_767, "minimizers", False, True),
-    ("canonical super-k-mers w=32767", True, 32_767, "superkmers", False, False),
-    ("forward closed syncmers w=32767", False, 32_767, "closed_syncmers", False, False),
-    ("canonical w=21721", True, 21_721, "minimizers", False, False),
-    ("canonical w=21723", True, 21_723, "minimizers", False, False),
+    ("canonical w=32767", True, 32_767, "minimizers", False, "dna"),
+    ("forward w=61439 masked", False, 61_439, "minimizers", True, "dna"),
+    ("text mul w=32767", False, 32_767, "minimizers", False, "text"),
+    ("canonical super-k-mers w=32767", True, 32_767, "superkmers", False, "dna"),
+    ("forward closed syncmers w=32767", False, 32_767, "closed_syncmers", False, "dna"),
+    ("canonical w=21721", True, 21_721, "minimizers", False, "dna"),
+    ("canonical w=21723", True, 21_723, "minimizers", False, "dna"),
+    ("canonical code bytes w=32767", True, 32_767, "minimizers", False, "code bytes"),
 ]
 
 
@@ -133,13 +137,26 @@ def _worker(root: str, seed: int, passes: bool) -> dict:
                                 device=dev, generator=g)
     scan(span_counts, f"{SPAN_TILES}")
 
-    for name, canonical, w, mode, masked, is_text in LARGE_W:
+    codes = convert.code_bytes(seq.codes(), dev)
+    for name, canonical, w, mode, masked, inp in LARGE_W:
+        is_text = inp == "text"
         hasher = smt.MulHasher(K) if is_text else smt.NtHasher(K, canonical=canonical)
         t, rot, can, kind = tables(hasher, is_text)
-        args = (txt if is_text else dna, N, K, w, t, rot, can, mode, plane if masked else None)
+        chars = {"dna": dna, "text": txt, "code bytes": codes}[inp]
+        args = (chars, N, K, w, t, rot, can, mode, plane if masked else None)
         kw = {"text": is_text, "kind": kind}
+        if inp == "code bytes":
+            kw["byte_codes"] = True
         out[f"minimizer_tiles {name}"] = h._median_ms(
             lambda: fused.minimizer_tiles(*args, **kw), 5, 3, 1)[0]
+        if "top16" in inspect.signature(fused.minimizer_tiles).parameters:
+            tops = fused.kmer_top16(*args[:3], *args[4:7], **kw)
+            out[f"route given its tops {name}"] = h._median_ms(
+                lambda: fused.minimizer_tiles(*args, **kw, top16=tops), 5, 3, 1)[0]
+            del tops
+        if hasattr(fused, "tiles_occupancy"):
+            out[f"blocks per SM {name}"] = fused.tiles_occupancy(
+                K, w, can, mode, masked, is_text, kind, dev)[0]
 
     codes = np.random.default_rng(seed + 8).integers(0, 4, 8192, dtype=np.uint8)
     sk = ShortSeqSketcher(K, W, smt.NtHasher(K, canonical=True), donate=False, device=dev)

@@ -13,7 +13,8 @@
 //
 // Three launches (four on the large-w route, kmer_top16 first):
 //   1. minimizer_tiles<CANONICAL, MODE, AMB>: one block per tile of TILE
-//      windows. It reads the tile's chars (plus an l+3 char halo) straight
+//      windows. It reads the tile's chars (plus an l+3 char halo; on the
+//      large-w route only their T/G bits, canonical) straight
 //      from the plain 2-bit byte stream, or one char per byte (`bytes_in`):
 //      the raw bytes of text (`text`; the TPU's byte-striped `striped8`
 //      input and the decode of `lane_matrix_from`) or 2-bit codes, of which
@@ -100,24 +101,30 @@
 //   strand count reads 16 T/G bits a thread from a bit plane built from the
 //   chars (bit 1 of each) instead of 32 byte loads at a 16-byte stride (a
 //   4-way conflict), and the first window's count is a popc over it.
-// - The large-w route (sub_tile T, a power of two <= min(w, TILE)) keeps the
-//   chars, two blocks of T keys per arm and one least key per window, so its
-//   shared memory no longer grows with w in keys: every w with TILE + w <=
+// - The large-w route (sub_tile T, a power of two <= min(w, TILE)) keeps
+//   two blocks of T keys per arm and one least key per window, so its
+//   shared memory does not grow with w in keys: every w with TILE + w <=
 //   2^16 (the 16-bit column) fits. It hashes nothing: the pre-pass
 //   kmer_top16 (csrc/top16.cu, launched first by ops/fused.minimizer_tiles)
 //   writes the top 16 hash bits of every k-mer of the launch once, and the
 //   route reads the w + T of them that each block of T windows covers, as
 //   coalesced 16-byte loads of eight tops (consecutive threads on
-//   consecutive columns; the 132 resident tiles' columns, about 1.2 MB, stay
-//   in L2), and
+//   consecutive columns; the resident tiles' columns stay in L2), and
 //   packs each into the (top16 | column) key of its arm, INVALID where the
-//   column's k-mer lies outside [0, n - k]. Before, it hashed those w + T
-//   k-mers per T windows itself (9 to 16 hashes a window at w = 32,767 and
-//   61,439, each with two table lookups), which one block per SM (canonical
-//   from w ~ 13,000; forward with a mask at w = 61,439) could not hide. It
-//   takes three mins per window (a suffix of block 0, the core's least key,
-//   a prefix of block 1), and counts the first window of each thread by a
-//   block scan instead of O(l) per thread; it reads no table.
+//   column's k-mer lies outside [0, n - k]. It takes three mins per window
+//   (a suffix of block 0, the core's least key, a prefix of block 1), and
+//   counts the first window of each thread by a block scan instead of O(l)
+//   per thread; it reads no table and keeps no chars. Three things set its
+//   pace on the H100, and the design answers each: the blocks' scans
+//   (block_min_scans: a run per thread at a padded index, so that no
+//   access conflicts, where a run at the plain index is a 16-way conflict,
+//   and two barriers for all four arrays); a byte per char in shared
+//   memory, which would hold a canonical tile at w = 32,767 to one block
+//   per SM for the strand count alone (it reads the T/G bit plane of the
+//   stored route instead, an eighth of the bytes, built from the input's
+//   words; forward instances load no chars); and latency, which more
+//   blocks per SM hide (ops/fused.tiles_occupancy: 2 canonical at
+//   w = 32,767, 3 forward at w = 61,439 with a mask, 4 forward at 32,767).
 //
 // tile_offsets is bound by latency, not by bytes: at 1e8 chars it scans
 // 24,415 counts (98 KB, 0.06 us of the card's bandwidth both ways), and one
@@ -158,44 +165,51 @@ constexpr int MINIMIZERS = 0;  // sel where it differs from the previous window'
 constexpr int SUPERKMERS = 1;  // the same, plus the window index as a second plane
 constexpr int SYNCMERS = 2;    // the window index gw where sel - gw is sync_lo or sync_hi
 
-// Shared-memory layout of minimizer_tiles. Chars cover positions
-// [t0 - 4, t0 + TILE + l - 1) of the tile starting at window t0, rounded up
-// to whole packed bytes; then the key space, which also stages the
-// compacted planes (TILE words each); with AMB, ambiguity bits cover chars
-// t0 - 32 .. in whole 32-bit words; canonical on the stored route, the T/G
-// bit (bit 1) of each char of the tile, bit b of word i for char 32 i + b
-// of the chars above; the fold's forward and complement values of each char
-// follow (2 * 4 words for 2-bit codes, 2 * 256 for text bytes, none for
-// antilex).
+// Shared-memory layout of minimizer_tiles. On the stored route, chars
+// cover positions [t0 - 4, t0 + TILE + l - 1) of the tile starting at
+// window t0, rounded up to whole packed bytes (the large-w route keeps no
+// chars); then the key space, which also stages the compacted planes (TILE
+// words each); with AMB, ambiguity bits cover chars t0 - 32 .. in whole
+// 32-bit words; canonical, the T/G bit (bit 1) of each char of the tile,
+// bit b of word i for char t0 - 4 + 32 i + b; on the stored route the
+// fold's forward and complement values of each char follow (2 * 4 words
+// for 2-bit codes, 2 * 256 for text bytes, none for antilex).
 // The key space of the stored route (sub_tile 0): the keys of k-mers
 // t0 - 1 .. t0 + TILE + w - 2 (columns 0 .. TILE + w - 1), per arm, at
 // kidx(column) in an array of whole 32-word rows. Of the large-w route
 // (sub_tile T, a power of two <= w and <= TILE): per arm the minimum key of
-// each of the TILE + 1 windows, then two blocks of T keys.
+// each of the TILE + 1 windows, then two blocks of scan_words(T): T keys at
+// sidx (one pad word after each thread's run of the scan), then the scan's
+// THREADS / 32 warp totals.
 __host__ __device__ inline int tile_chars(int l) { return (TILE + l + 3 + 3) / 4 * 4; }
-__host__ __device__ inline int key_offset(int l) { return (tile_chars(l) + 15) / 16 * 16; }
+__host__ __device__ inline int key_offset(int l, int sub_tile) {
+  return sub_tile ? 0 : (tile_chars(l) + 15) / 16 * 16;
+}
 __host__ __device__ inline int tile_kmers(int w) { return TILE + w; }
 __host__ __device__ inline int stored_arm_words(int w) { return (tile_kmers(w) + 31) / 32 * 32; }
+__host__ __device__ inline int scan_words(int sub_tile) {
+  return sub_tile + (sub_tile > THREADS ? THREADS : 0) + THREADS / 32;
+}
 __host__ __device__ inline int key_words(int w, bool canonical, int mode, int sub_tile) {
-  const int per_arm = sub_tile ? TILE + 1 + 2 * sub_tile : stored_arm_words(w);
+  const int per_arm = sub_tile ? TILE + 1 + 2 * scan_words(sub_tile) : stored_arm_words(w);
   const int keys = (canonical ? 2 : 1) * per_arm;
   const int staged = (mode == SUPERKMERS ? 2 : 1) * TILE;
   return keys > staged ? keys : staged;
 }
 __host__ __device__ inline int amb_words(int l) { return (TILE + l + 62) / 32; }
-__host__ __device__ inline int tg_words(int l, bool canonical, int sub_tile) {
-  return canonical && !sub_tile ? (tile_chars(l) + 31) / 32 : 0;
+__host__ __device__ inline int tg_words(int l, bool canonical) {
+  return canonical ? (tile_chars(l) + 31) / 32 : 0;
 }
-__host__ __device__ inline int table_words(bool text, bool antilex) {
-  return antilex ? 0 : 2 * (text ? TEXT_CHARS : CODES);
+__host__ __device__ inline int table_words(bool text, bool antilex, int sub_tile) {
+  return antilex || sub_tile ? 0 : 2 * (text ? TEXT_CHARS : CODES);
 }
 
 inline size_t tile_smem_bytes(int k, int w, bool canonical, int mode, bool amb, bool text,
                               bool antilex, int sub_tile) {
   const int l = k + w - 1;
-  return (size_t)key_offset(l) + 4 * (size_t)key_words(w, canonical, mode, sub_tile) +
-         (amb ? 4 * (size_t)amb_words(l) : 0) + 4 * (size_t)tg_words(l, canonical, sub_tile) +
-         4 * (size_t)table_words(text, antilex);
+  return (size_t)key_offset(l, sub_tile) + 4 * (size_t)key_words(w, canonical, mode, sub_tile) +
+         (amb ? 4 * (size_t)amb_words(l) : 0) + 4 * (size_t)tg_words(l, canonical) +
+         4 * (size_t)table_words(text, antilex, sub_tile);
 }
 
 // The stored route's index of column j: its low four bits XOR its 32-word
@@ -227,6 +241,34 @@ __device__ __forceinline__ uint32_t bits16(const uint32_t* plane, int b) {
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int r) { return __funnelshift_r(x, x, r); }
+
+// Bytes gb .. gb + 3 (gb a multiple of 4) of the nbytes at p as a
+// little-endian word, one load where p is 4-byte aligned (`aligned`) and all
+// four lie in [0, nbytes); bytes outside it read as 0.
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ p, long long nbytes,
+                                              long long gb, bool aligned) {
+  if (aligned && gb >= 0 && gb + 4 <= nbytes)
+    return __ldg(reinterpret_cast<const uint32_t*>(p + gb));
+  uint32_t x = 0;
+  for (int j = 0; j < 4; ++j)
+    if (gb + j >= 0 && gb + j < nbytes) x |= (uint32_t)p[gb + j] << (8 * j);
+  return x;
+}
+
+// The odd bits of x (bit 2 j + 1 to bit j): the T/G bits of 16 packed chars.
+__device__ __forceinline__ uint32_t odd_bits(uint32_t x) {
+  x = (x >> 1) & 0x55555555u;
+  x = (x | x >> 1) & 0x33333333u;
+  x = (x | x >> 2) & 0x0F0F0F0Fu;
+  x = (x | x >> 4) & 0x00FF00FFu;
+  return (x | x >> 8) & 0xFFFFu;
+}
+
+// Bit 1 of each of the 4 bytes of x, gathered to bits 0 .. 3 by a multiply
+// (bits 0, 8, 16, 24 of y land on 24 .. 27, the cross terms below 20).
+__device__ __forceinline__ uint32_t byte_tg4(uint32_t x) {
+  return (((x >> 1) & 0x01010101u) * 0x01020408u) >> 24;
+}
 
 // Inclusive scan across a block; every thread gets its own prefix and the
 // block total. warp_sums holds one int per warp.
@@ -268,40 +310,71 @@ __device__ __forceinline__ uint32_t block_min(uint32_t x, int* warp_buf) {
   return x;
 }
 
-// In place, a[i] = min(a[0..i]) over i < m (prefix) or min(a[i..m)) (suffix,
-// `rev`): each thread scans a run, then takes the least of the runs before
-// it. Ends with a barrier.
-__device__ __forceinline__ void block_min_scan(uint32_t* a, int m, bool rev, int* warp_buf) {
+// The large-w route's index of key p of a block of T keys: one pad word
+// after each thread's run of T / THREADS keys in block_min_scans (sh =
+// log2 of the run; 31, no pad, where T <= THREADS and a run is one key).
+__device__ __forceinline__ int sidx(int p, int sh) { return p + (p >> sh); }
+
+// In place, NA arrays of m keys (m a power of two <= TILE), array x at
+// a + stride x, key p at sidx(p, sh), with its THREADS / 32 warp totals in
+// its last words: an even x gets its suffix minima (a[p] = min(a[p..m))),
+// an odd x its prefix minima (min(a[0..p])). Thread t scans the run r in
+// [t per, (t + 1) per) of each array (per = m / THREADS, or 1; r counts
+// from the end for a suffix), a warp-shuffle scan combines the runs of a
+// warp, and after one barrier each thread takes the least of the warps
+// before it. Conflict-free by construction: the pad puts run t at index
+// t (per + 1) (or t (per + 1) counted down from the end), and per + 1 is
+// odd, so the 32 lanes of a warp, each at word r of its run, hit 32
+// distinct banks; where per = 1 they touch 32 consecutive words; a warp
+// total is written by one lane and read as a broadcast. Two barriers for
+// all NA arrays; the caller's barriers end the stores that fill them.
+template <int NA>
+__device__ __forceinline__ void block_min_scans(uint32_t* a, int stride, int m, int sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = (m + THREADS - 1) / THREADS;
   const int r0 = min((int)threadIdx.x * per, m), r1 = min(r0 + per, m);
-  uint32_t run = INVALID;
-  for (int r = r0; r < r1; ++r) {
-    const int p = rev ? m - 1 - r : r;
-    run = min(run, a[p]);
-    a[p] = run;
-  }
-  uint32_t x = run;  // inclusive min over the warp's runs
+  uint32_t before[NA];
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x = min(x, y);
+  for (int x = 0; x < NA; ++x) {
+    uint32_t* ax = a + x * stride;
+    uint32_t run = INVALID;
+    for (int r = r0; r < r1; ++r) {
+      const int i = sidx(x & 1 ? r : m - 1 - r, sh);
+      run = min(run, ax[i]);
+      ax[i] = run;
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {  // inclusive min over the warp's runs
+      const uint32_t y = __shfl_up_sync(0xffffffffu, run, d);
+      if (lane >= d) run = min(run, y);
+    }
+    before[x] = __shfl_up_sync(0xffffffffu, run, 1);
+    if (lane == 0) before[x] = INVALID;
+    if (lane == 31) ax[stride - THREADS / 32 + warp] = run;
   }
-  uint32_t before = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) before = INVALID;
   __syncthreads();
-  if (lane == 31) warp_buf[warp] = (int)x;
-  __syncthreads();
-  for (int i = 0; i < warp; ++i) before = min(before, (uint32_t)warp_buf[i]);
-  for (int r = r0; r < r1; ++r) {
-    const int p = rev ? m - 1 - r : r;
-    a[p] = min(a[p], before);
+#pragma unroll
+  for (int x = 0; x < NA; ++x) {
+    uint32_t* ax = a + x * stride;
+    for (int i = 0; i < warp; ++i) before[x] = min(before[x], ax[stride - THREADS / 32 + i]);
+    for (int r = r0; r < r1; ++r) {
+      const int i = sidx(x & 1 ? r : m - 1 - r, sh);
+      ax[i] = min(ax[i], before[x]);
+    }
   }
   __syncthreads();
 }
 
+// Launch bounds: canonical instances at most 64 registers a thread (4
+// blocks per SM), forward at most 51 (5), the stored route's occupancy at
+// w = 11 (37.7 / 20.7 KB of shared memory a block). Without the canonical
+// bound ptxas gives those instances 72-80 registers for the large-w route's
+// code (3 blocks per SM, and the canonical w = 11 paths 6% slower on an
+// H100); forward instances take 46-48 without a bound (66-68 with a bound
+// of 1 block). At 64 the masked canonical super-k-mer and syncmer instances
+// spill 4 B.
 template <bool CANONICAL, int MODE, bool AMB>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, CANONICAL ? 4 : 5)
 minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, int k, int w,
                 int bytes_in, int text, int antilex, const long long* __restrict__ table,
                 int rot, const uint8_t* __restrict__ amb, long long amb_nbytes, int sync_lo,
@@ -329,19 +402,18 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
   const int nchars = tile_chars(l);
   const int nk = tile_kmers(w);
   const int T = sub_tile;  // 0: the stored route; else the large-w route's block of columns
-  uint8_t* s_c = smem;                                 // s_c[s] = code of char t0 - 4 + s
+  uint8_t* s_c = smem;  // stored route: s_c[s] = code of char t0 - 4 + s
   // stored route: s_kl[kidx(j)] is the key of k-mer t0 - 1 + j (column j);
   // large-w route: s_kl[a] is the least key of window a - 1 (columns a ..
   // a + w - 1)
-  uint32_t* s_kl = reinterpret_cast<uint32_t*>(smem + key_offset(l));
+  uint32_t* s_kl = reinterpret_cast<uint32_t*>(smem + key_offset(l, T));
   uint32_t* s_kr = s_kl + (T ? TILE + 1 : stored_arm_words(w));
   uint32_t* s_amb = s_kl + key_words(w, CANONICAL, MODE, T);  // bit b: char t0 - 32 + b
-  uint32_t* s_tg = s_amb + (AMB ? amb_words(l) : 0);  // bit s: bit 1 of s_c[s] (stored route)
-  // the fold's per-char values: forward tF[c], complement tR[c]
-  uint32_t* tF = s_tg + tg_words(l, CANONICAL, T);
+  uint32_t* s_tg = s_amb + (AMB ? amb_words(l) : 0);  // bit s: bit 1 of char t0 - 4 + s
+  // stored route: the fold's per-char values, forward tF[c], complement tR[c]
+  uint32_t* tF = s_tg + tg_words(l, CANONICAL);
   uint32_t* tR = tF + (text ? TEXT_CHARS : CODES);
-  if (!T)
-    for (int i = tid; i < table_words(text, antilex); i += THREADS) tF[i] = (uint32_t)table[i];
+  for (int i = tid; i < table_words(text, antilex, T); i += THREADS) tF[i] = (uint32_t)table[i];
   // 2-bit input: the rolling step's value of each (outgoing, incoming)
   // char pair, both rotated, per strand (`hash_cols`)
   __shared__ uint32_t s_roll[2][CODES * CODES];
@@ -352,27 +424,46 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
                      rotl((uint32_t)table[CODES + b], rot - 1);
   }
 
-  // B1: one char per shared byte. 2-bit input: decode whole packed bytes
-  // (base i at bits 2 * (i % 4)), chars outside [0, nbytes * 4) reading as
-  // 0. One char per byte: copy the bytes, four at a time where they are
-  // aligned and in range, chars outside [0, nbytes) reading as 0, and keep
-  // the low two bits of a code byte (its table has 4 entries). Such chars
-  // only reach k-mers and windows masked below.
-  if (bytes_in) {
-    const long long g0 = t0 - 4;  // a multiple of 4
-    const bool aligned = (reinterpret_cast<uintptr_t>(words) & 3) == 0;
-    const uint32_t keep = text ? 0xFFFFFFFFu : 0x03030303u;
-    for (int bi = tid; bi < nchars / 4; bi += THREADS) {
-      const long long gb = g0 + 4LL * bi;
-      uint32_t x = 0;
-      if (aligned && gb >= 0 && gb + 4 <= nbytes) {
-        x = __ldg(reinterpret_cast<const uint32_t*>(words + gb));
-      } else {
-        for (int j = 0; j < 4; ++j)
-          if (gb + j >= 0 && gb + j < nbytes) x |= (uint32_t)words[gb + j] << (8 * j);
+  // B1, stored route: one char per shared byte. 2-bit input: decode whole
+  // packed bytes (base i at bits 2 * (i % 4)), chars outside [0, nbytes * 4)
+  // reading as 0. One char per byte: copy the bytes, four at a time where
+  // they are aligned and in range, chars outside [0, nbytes) reading as 0,
+  // and keep the low two bits of a code byte (its table has 4 entries). Such
+  // chars only reach k-mers and windows masked below.
+  // Large-w route: no chars in shared memory; canonical builds the T/G plane
+  // (bit s: bit 1 of char t0 - 4 + s, chars outside the input reading as 0)
+  // from the input's 32-bit words, word i from chars t0 - 4 + 32 i ..: of
+  // 2-bit input the odd bits of 16 packed chars a load (word a of the input
+  // holds chars 16 a .., and t0 is a multiple of 16: three loads); of bytes
+  // bit 1 of each, gathered by a multiply (eight loads).
+  const bool words_aligned = (reinterpret_cast<uintptr_t>(words) & 3) == 0;
+  auto word_at = [&](long long gb) { return load_word(words, nbytes, gb, words_aligned); };
+  if (T) {
+    if (CANONICAL)
+      for (int i = tid; i < tg_words(l, true); i += THREADS) {
+        uint32_t x = 0;
+        if (bytes_in) {
+          const long long g = t0 - 4 + 32LL * i;
+          if (words_aligned && g >= 0 && g + 32 <= nbytes) {  // eight loads in flight
+            const uint32_t* p = reinterpret_cast<const uint32_t*>(words + g);
+#pragma unroll
+            for (int q = 0; q < 8; ++q) x |= byte_tg4(__ldg(p + q)) << (4 * q);
+          } else {  // the input's ends, or unaligned: rolled (see the launch bounds)
+#pragma unroll 1
+            for (int q = 0; q < 8; ++q) x |= byte_tg4(word_at(g + 4 * q)) << (4 * q);
+          }
+        } else {
+          const long long a = t0 / 16 + 2LL * i;  // chars 16 a - 4 .. 16 a + 27
+          x = odd_bits(word_at(4 * (a - 1))) >> 12 | odd_bits(word_at(4 * a)) << 4 |
+              odd_bits(word_at(4 * (a + 1))) << 20;
+        }
+        s_tg[i] = x;
       }
-      reinterpret_cast<uint32_t*>(s_c)[bi] = x & keep;
-    }
+  } else if (bytes_in) {
+    const long long g0 = t0 - 4;  // a multiple of 4
+    const uint32_t keep = text ? 0xFFFFFFFFu : 0x03030303u;
+    for (int bi = tid; bi < nchars / 4; bi += THREADS)
+      reinterpret_cast<uint32_t*>(s_c)[bi] = word_at(g0 + 4LL * bi) & keep;
   } else {
     const long long b0 = t0 / 4 - 1;
     for (int bi = tid; bi < nchars / 4; bi += THREADS) {
@@ -474,9 +565,7 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
     // and stores the least of the pr = 2^rp ending at j for column
     // j - pr + 1, hashing pr - 1 columns past its own so that its last
     // columns get theirs. Then (canonical) the T/G plane: word i from the
-    // 32 chars of s_c words 8i .. 8i + 7, the bit 1 of each byte gathered by
-    // a multiply (bits 0, 8, 16, 24 of y land on 24 .. 27, the cross terms
-    // below 20).
+    // 32 chars of s_c words 8i .. 8i + 7 (byte_tg4).
     const int per = (nk + THREADS - 1) / THREADS;
     const int j0 = tid * per;
     const int rp = min(passes, 2), pr = 1 << rp;
@@ -494,13 +583,11 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
     });
     if (CANONICAL) {
       const uint32_t* c4 = reinterpret_cast<const uint32_t*>(s_c);
-      for (int i = tid; i < tg_words(l, true, 0); i += THREADS) {
+      for (int i = tid; i < tg_words(l, true); i += THREADS) {
         uint32_t x = 0;
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const uint32_t y = 8 * i + q < nchars / 4 ? (c4[8 * i + q] >> 1) & 0x01010101u : 0u;
-          x |= (y * 0x01020408u) >> 24 << (4 * q);
-        }
+        for (int q = 0; q < 8; ++q)
+          if (8 * i + q < nchars / 4) x |= byte_tg4(c4[8 * i + q]) << (4 * q);
         s_tg[i] = x;
       }
     }
@@ -547,11 +634,14 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
     // index; the u32 offset is added at emission only). A thread reads the
     // tops of 8 columns from a k-mer index that is a multiple of 8 (t0 is
     // one, so from a column j = 1 mod 8) as one 16-byte load, consecutive
-    // threads on consecutive columns.
+    // threads on consecutive columns. Block keys sit at sidx (the scan's
+    // padded index), in arrays of scan_words(T) words.
+    const int S = scan_words(T);
+    const int sh = T > THREADS ? __ffs(T / THREADS) - 1 : 31;
     uint32_t* b0l = s_kl + (CANONICAL ? 2 : 1) * (TILE + 1);
-    uint32_t* b1l = b0l + T;
-    uint32_t* b0r = b1l + T;
-    uint32_t* b1r = b0r + T;
+    uint32_t* b1l = b0l + S;
+    uint32_t* b0r = b1l + S;
+    uint32_t* b1r = b0r + S;
     const uint16_t* tops = top16 + t0;  // tops[j - 1] = top16[t0 - 1 + j]: column j's top
     const bool aligned = (reinterpret_cast<uintptr_t>(top16) & 15) == 0;
     // the tops of columns jp .. jp + 7, two to a word (column jp + q in half
@@ -597,14 +687,14 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
           const uint32_t kl = live ? top | (uint32_t)j : INVALID;
           const uint32_t kr = CANONICAL && live ? top | (0xFFFFu - (uint32_t)j) : INVALID;
           if (r < T) {
-            b0l[r] = kl;
-            if (CANONICAL) b0r[r] = kr;
+            b0l[sidx(r, sh)] = kl;
+            if (CANONICAL) b0r[sidx(r, sh)] = kr;
           } else if (r < w) {
             cl = min(cl, kl);
             if (CANONICAL) cr = min(cr, kr);
           } else {
-            b1l[r - w] = kl;
-            if (CANONICAL) b1r[r - w] = kr;
+            b1l[sidx(r - w, sh)] = kl;
+            if (CANONICAL) b1r[sidx(r - w, sh)] = kr;
           }
         }
       };
@@ -612,16 +702,13 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
       for (int jp = js + 8 * tid; jp < end; jp += 8 * THREADS) put8(jp, load8(jp));
       cl = block_min(cl, s_warp);  // its barriers also end the block stores
       if (CANONICAL) cr = block_min(cr, s_warp);
-      block_min_scan(b0l, T, true, s_warp);
-      block_min_scan(b1l, T, false, s_warp);
-      if (CANONICAL) {
-        block_min_scan(b0r, T, true, s_warp);
-        block_min_scan(b1r, T, false, s_warp);
-      }
+      block_min_scans<CANONICAL ? 4 : 2>(b0l, S, T, sh);  // suffixes of b0*, prefixes of b1*
       for (int i = tid; i <= T; i += THREADS) {
-        s_kl[c0 + i] = min(min(i < T ? b0l[i] : INVALID, cl), i ? b1l[i - 1] : INVALID);
+        s_kl[c0 + i] = min(min(i < T ? b0l[sidx(i, sh)] : INVALID, cl),
+                           i ? b1l[sidx(i - 1, sh)] : INVALID);
         if (CANONICAL)
-          s_kr[c0 + i] = min(min(i < T ? b0r[i] : INVALID, cr), i ? b1r[i - 1] : INVALID);
+          s_kr[c0 + i] = min(min(i < T ? b0r[sidx(i, sh)] : INVALID, cr),
+                             i ? b1r[sidx(i - 1, sh)] : INVALID);
       }
       __syncthreads();
     }
@@ -694,23 +781,18 @@ minimizer_tiles(const uint8_t* __restrict__ words, long long nbytes, int n_arg, 
     }
   }
 
-  // the strand count: window vp + 1 + q gains char vp + 4 + l + q of s_c and
-  // loses char vp + 4 + q, bit q of tg_in and of tg_out
+  // the strand count: window vp + 1 + q gains char vp + 4 + l + q of the
+  // T/G plane and loses char vp + 4 + q, bit q of tg_in and of tg_out
   int cnt = 0;
   uint32_t tg_in = 0, tg_out = 0;
   if (CANONICAL) {
+    tg_in = bits16(s_tg, vp + 4 + l);
+    tg_out = bits16(s_tg, vp + 4);
     if (T) {
-      auto tg = [&](int s) -> int { return (s_c[s] >> 1) & 1; };
-      int part = 0;
-      for (int i = 3 + tid; i < 3 + l; i += THREADS) part += tg(i);
-      for (int q = 0; q < WPT; ++q) {
-        tg_in |= (uint32_t)tg(vp + 4 + q + l) << q;
-        tg_out |= (uint32_t)tg(vp + 4 + q) << q;
-      }
+      int part = 0;  // window -1's chars [3, 2 + l], a word a thread
+      for (int i = tid; i <= (2 + l) >> 5; i += THREADS) part += word_bits(s_tg, 3, 2 + l, i);
       cnt = first_count(part, __popc(tg_in) - __popc(tg_out));
     } else {
-      tg_in = bits16(s_tg, vp + 4 + l);
-      tg_out = bits16(s_tg, vp + 4);
       cnt = count_bits(s_tg, vp + 4, vp + 3 + l);
     }
   }
@@ -928,6 +1010,27 @@ int smt_init(int device) {
                                    smem_max - (int)attr.sharedSizeBytes);
       }
   return (int)e;
+}
+
+// The dynamic shared memory of a minimizer_tiles launch (the bytes that
+// ops/fused._smem_bytes mirrors).
+long long smt_tile_smem_bytes(int k, int w, int canonical, int mode, int amb, int text,
+                              int antilex, int sub_tile) {
+  return (long long)tile_smem_bytes(k, w, canonical != 0, mode, amb != 0, text != 0,
+                                    antilex != 0, sub_tile);
+}
+
+// The blocks of the minimizer_tiles instance (canonical, mode, amb) that
+// one SM of card `device` holds at once with `smem` bytes of dynamic shared
+// memory a block, in *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// after smt_init).
+int smt_tiles_blocks_per_sm(int device, int canonical, int mode, int amb, long long smem,
+                            int* blocks) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const TilesKernel kern = tiles_instance(canonical != 0, mode, amb != 0);
+  if (kern == nullptr || blocks == nullptr || smem < 0) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, THREADS, (size_t)smem);
 }
 
 // mode: 0 minimizers, 1 super-k-mers, 2 syncmers (kept where sel - gw is

@@ -44,8 +44,9 @@
 //   the block writes them out as 32-bit words, consecutive lanes on
 //   consecutive k-mers.
 // Its shared memory, max(KMERS + k - 1 chars, the staging) plus the tables,
-// is less than minimizer_tiles' at every geometry that kernel admits, so the
-// pre-pass never narrows ops/fused.fused_supported.
+// is less than the bound of ops/fused.fused_supported on the large-w route
+// (`_halo_bytes`: the tile's TILE + k + w + 2 chars and its keys) at every
+// geometry it admits, so the pre-pass never narrows the gate.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -35,6 +35,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "smt_tile_windows": ([], _I),
     "smt_init": ([_I], _I),
+    "smt_tile_smem_bytes": ([_I, _I, _I, _I, _I, _I, _I, _I], _LL),
+    "smt_tiles_blocks_per_sm": ([_I, _I, _I, _I, _LL, _P], _I),
     "smt_minimizer_tiles": ([_I, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _LL, _I,
                              _I, ctypes.c_uint, _P, _I, _I, _P, _P, _P, _I, _P], _I),
     "smt_top16_init": ([_I], _I),

@@ -41,6 +41,8 @@ while the next launches run.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -51,6 +53,7 @@ from ..utils.profiling import stage
 from . import _build, pipeline
 
 TILE = 4096  # windows per thread block; csrc/minimizers.cu TILE
+THREADS = 256  # threads per block of minimizer_tiles; csrc/minimizers.cu THREADS
 SCAN_BLOCK = 1024  # counts per block of tile_offsets; csrc/minimizers.cu SCAN_BLOCK
 SPAN_CHARS = 1 << 29  # chars per span of a long sequence or record (the JAX package's)
 # dynamic shared memory one block may use on Hopper: 227 KiB less the
@@ -108,23 +111,44 @@ def min_passes(w: int) -> int:
 
 def _smem_bytes(k: int, w: int, canonical: bool, mode: str, ambiguous: bool, text: bool,
                 kind: str, t: int) -> int:
-    """Mirror of csrc/minimizers.cu tile_smem_bytes for sub_tile t: the
-    tile's chars, its keys (whose space also stages one TILE-word plane per
-    output plane): on the stored route (t = 0) every column's in whole
-    32-word rows, on the large-w route per arm a least key per window and
-    two blocks of t; with an ambiguity plane the tile's ambiguity bits in
-    32-bit words; canonical on the stored route the chars' T/G bits in
-    32-bit words; and the fold's forward and complement tables (none for
-    antilex)."""
+    """Mirror of csrc/minimizers.cu tile_smem_bytes for sub_tile t: on the
+    stored route (t = 0) the tile's chars; the keys (whose space also stages
+    one TILE-word plane per output plane): on the stored route every
+    column's in whole 32-word rows, on the large-w route per arm a least key
+    per window and two blocks of t keys, each with one pad word per thread's
+    run of the scan (where t > THREADS) and the scan's THREADS / 32 warp
+    totals; with an ambiguity plane the tile's ambiguity bits in 32-bit
+    words; canonical the chars' T/G bits in 32-bit words; and on the stored
+    route the fold's forward and complement tables (none for antilex)."""
     l = k + w - 1
     chars = (TILE + l + 6) // 4 * 4
-    per_arm = TILE + 1 + 2 * t if t else (TILE + w + 31) // 32 * 32
+    scan = t + (THREADS if t > THREADS else 0) + THREADS // 32
+    per_arm = TILE + 1 + 2 * scan if t else (TILE + w + 31) // 32 * 32
     keys = max((2 if canonical else 1) * per_arm,
                (2 if mode == pipeline.MODE_SUPERKMERS else 1) * TILE)
     amb = (TILE + l + 62) // 32 * 4 if ambiguous else 0
-    tg = (chars + 31) // 32 * 4 if canonical and not t else 0
+    tg = (chars + 31) // 32 * 4 if canonical else 0
+    tables = 0 if t or kind == "antilex" else 2 * 4 * convert.TABLE_ENTRIES[text]
+    return (0 if t else (chars + 15) // 16 * 16) + 4 * keys + amb + tg + tables
+
+
+def _halo_bytes(k: int, w: int, canonical: bool, mode: str, ambiguous: bool, text: bool,
+                kind: str, t: int) -> int:
+    """The geometry term that bounds `fused_supported` on the large-w route
+    (sub_tile t): the tile's chars with their l + 3 char halo, one a byte in
+    whole 16-byte rows, beside the route's keys (two blocks of t keys per
+    arm, no padding), its ambiguity words and the fold's tables. The route
+    holds no chars and no tables (canonical, a T/G bit plane of an eighth
+    of the chars), so every geometry this admits fits its layout. The gate
+    keeps this bound of the halo (the JAX package's gate bounds its halo
+    too) rather than the smaller layout's, which would admit k far past it
+    (at w = 11 this bound stops near k = 190,000)."""
+    l = k + w - 1
+    keys = max((2 if canonical else 1) * (TILE + 1 + 2 * t),
+               (2 if mode == pipeline.MODE_SUPERKMERS else 1) * TILE)
+    amb = (TILE + l + 62) // 32 * 4 if ambiguous else 0
     tables = 0 if kind == "antilex" else 2 * 4 * convert.TABLE_ENTRIES[text]
-    return (chars + 15) // 16 * 16 + 4 * keys + amb + tg + tables
+    return ((TILE + l + 6) // 4 * 4 + 15) // 16 * 16 + 4 * keys + amb + tables
 
 
 def sub_tile(k: int, w: int, canonical: bool = True, mode: str = pipeline.MODE_MINIMIZERS,
@@ -151,10 +175,14 @@ def fused_supported(k: int, w: int, canonical: bool = True, mode: str = pipeline
                     ambiguous: bool = False, text: bool = False, kind: str = "nt") -> bool:
     """Whether the kernel's geometry covers (k, w): every k-mer column of a
     tile (TILE + w of them) fits the key's 16 bits, and the tile's chars,
-    keys, ambiguity bits and tables fit one block's shared memory (with the
-    large-w route, every such w at k up to about 50,000)."""
-    return (k >= 1 and w >= 1 and TILE + w <= _KEY_COLUMNS
-            and _tile_smem_bytes(k, w, canonical, mode, ambiguous, text, kind) <= _SMEM_MAX)
+    keys, ambiguity bits and tables fit one block's shared memory (on the
+    large-w route the bound of `_halo_bytes`: every such w at k up to about
+    50,000)."""
+    if not (k >= 1 and w >= 1 and TILE + w <= _KEY_COLUMNS):
+        return False
+    t = sub_tile(k, w, canonical, mode, ambiguous, text, kind)
+    return (_halo_bytes if t else _smem_bytes)(k, w, canonical, mode, ambiguous, text, kind,
+                                               t) <= _SMEM_MAX
 
 
 def _check(err: int, what: str) -> None:
@@ -179,6 +207,29 @@ def _library(device: torch.device):
                                                  dtype=torch.int64, device=device)
         _ready_devices.add(device.index)
     return lib
+
+
+def tiles_occupancy(k: int, w: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
+                    ambiguous: bool = False, text: bool = False, kind: str = "nt",
+                    device: torch.device | str = "cuda") -> tuple[int, int]:
+    """(blocks per SM, dynamic shared memory per block in bytes) of the
+    minimizer_tiles launch at this geometry on the card, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor with the bytes the kernel
+    computes for itself (csrc/minimizers.cu tile_smem_bytes, which
+    `_smem_bytes` mirrors)."""
+    dev = require_cuda(device)
+    if dev.type != "cuda":
+        raise ValueError("the occupancy of a kernel is a property of a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    lib = _library(dev)
+    smem = lib.smt_tile_smem_bytes(k, w, int(canonical), _KERNEL_MODE[mode], int(ambiguous),
+                                   int(text), int(kind == "antilex"),
+                                   sub_tile(k, w, canonical, mode, ambiguous, text, kind))
+    blocks = ctypes.c_int(0)
+    _check(lib.smt_tiles_blocks_per_sm(dev.index, int(canonical), _KERNEL_MODE[mode],
+                                       int(ambiguous), smem, ctypes.byref(blocks)),
+           "smt_tiles_blocks_per_sm")
+    return blocks.value, smem
 
 
 def _device_kind(t: torch.Tensor) -> str:

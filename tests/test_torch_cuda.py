@@ -1150,6 +1150,95 @@ def test_short_seq_sketcher_large_w(dev):
         np.testing.assert_array_equal(got, want)
 
 
+
+# every power of two T = sub_tile from 1 to TILE with the large-w route forced
+FORCED_W = [1, 2, 5, 9, 17, 31, 33, 63, 65, 255, 257, 1000, 1025, 4095, 4097, 8192, 32_767,
+            61_439]
+
+
+@pytest.mark.parametrize("w", FORCED_W)
+@pytest.mark.parametrize("canonical", [False, True])
+def test_large_w_route_every_scan_size(dev, w, canonical, monkeypatch):
+    """The large-w route forced at every w (LARGE_W_MIN = 1): every block
+    size of its scan (T = 1 .. 4,096, below a warp too), in every mode
+    family with and without a mask, on 2-bit packed DNA (an unaligned view
+    too), code bytes and text, across tile seams: minimizer_tiles
+    bit-equal to minimizer_tiles_plain."""
+    monkeypatch.setattr(fused, "LARGE_W_MIN", 1)
+    k = 21 if (w % 2 or not canonical) else 22
+    l = k + w - 1
+    assert fused.sub_tile(k, w, canonical) == min(TILE, 1 << (w.bit_length() - 1))
+    rng = np.random.default_rng(w * 2 + canonical)
+    n = 2 * TILE + 17 + l - 1
+    dna = rng.integers(0, 4, n, dtype=np.uint8)
+    text = rng.integers(0, 256, n, dtype=np.uint8)
+    h = convert.hasher_from(NtHasher(k, canonical=canonical))
+    packed = convert.packed_words(PackedSeqVec.from_codes(dna), dev)
+    inputs = [("packed", packed, False, {}),
+              ("unaligned", torch.cat([packed.new_zeros(1), packed])[1:], False, {}),
+              ("code bytes", convert.code_bytes(dna | 0xF0, dev), False, {"byte_codes": True}),
+              ("text", convert.text_bytes(GenericSeq(text), dev), True, {"text": True})]
+    mask = _clustered_mask(n, l, rng)
+    plane = convert.ambiguity_plane(mask, n, dev)
+    for name, chars, is_text, kw in inputs:
+        (kind, can, rot), tables = convert.hasher_tensors(h, dev, is_text)
+        for mode in (pipeline.MODE_MINIMIZERS, SKM, CLOSED):
+            for amb in (None, plane):
+                args = (chars, n, k, w, tables, rot, can, mode, amb)
+                scratch, counts = fused.minimizer_tiles(*args, kind=kind, **kw)
+                p_scratch, p_counts = pipeline.minimizer_tiles_plain(
+                    *args[:7], TILE, mode, amb, kind=kind, **kw)
+                assert torch.equal(counts, p_counts), (name, mode, amb is not None)
+                live = torch.arange(TILE, device=dev) < counts[:, None]
+                for g, p in zip(scratch.view(-1, counts.numel(), TILE),
+                                p_scratch.view(-1, counts.numel(), TILE)):
+                    assert torch.equal(g[live], p[live]), (name, mode, amb is not None)
+
+
+def test_short_seq_sketcher_large_w_32767(dev):
+    """A ShortSeqSketcher at w = 32,767: each replay reads its length from
+    meta on the card; every result equals the plain version of the same
+    chars and the oracle."""
+    from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher
+
+    k, w = 21, 32_767
+    h = NtHasher(k, canonical=True)
+    sk = ShortSeqSketcher(k, w, convert.hasher_from(h), device=dev)
+    rng = np.random.default_rng(29)
+    lens = [k + w - 1, k + w + 17, k + w + 4096, k + w + 6000, sk.max_chars]
+    seqs = [rng.integers(0, 4, n, dtype=np.uint8) for n in lens]
+    before = fused.LAUNCHES["kmer_top16"]
+    outs = sk.sketch_many(seqs)
+    assert fused.LAUNCHES["kmer_top16"] - before == len(seqs)
+    for s, got in zip(seqs, outs, strict=True):
+        args, kw = _args(s, k, w, h, dev)
+        want = pipeline.run_pipeline(*args, **kw)
+        np.testing.assert_array_equal(got, want.cpu().numpy().view(np.uint32))
+        np.testing.assert_array_equal(got, _oracle(s, k, w, h))
+
+
+def test_smem_bytes_agree_with_the_kernel(dev):
+    """ops/fused._smem_bytes equals the kernel's tile_smem_bytes on both
+    routes; the large-w paths fit 2 (canonical w = 32,767), 3 (forward
+    w = 61,439 with a mask) and 4 (forward w = 32,767) blocks per SM."""
+    lib = fused._library(torch.device("cuda", torch.cuda.current_device()))
+    for k, w in ((21, 11), (5, 7), (64, 63), (21, 8191), (21, 8192), (22, 32_767),
+                 (21, 61_439), (190_001, 63), (1001, 5)):
+        for canonical, mode, amb, text, kind in (
+                (True, pipeline.MODE_MINIMIZERS, False, False, "nt"),
+                (False, SKM, True, True, "mul"), (False, CLOSED, True, False, "antilex"),
+                (True, SKM, False, True, "antilex")):
+            for t in (0, min(TILE, 1 << (w.bit_length() - 1))):
+                assert lib.smt_tile_smem_bytes(
+                    k, w, int(canonical), fused._KERNEL_MODE[mode], int(amb), int(text),
+                    int(kind == "antilex"), t) == fused._smem_bytes(
+                        k, w, canonical, mode, amb, text, kind, t), (k, w, t, canonical, mode)
+    for want, geometry in ((2, (21, 32_767, True)), (3, (21, 61_439, False, "minimizers", True)),
+                           (4, (21, 32_767, False, CLOSED, False, True, "mul"))):
+        blocks, smem = fused.tiles_occupancy(*geometry)
+        assert smem == fused._tile_smem_bytes(*geometry)
+        assert blocks >= want, (geometry, blocks, smem)
+
 # -- k-mer values on the card (csrc/values.cu) ------------------------------
 
 VALUE_KS = [1, 2, 5, 15, 16, 17, 21, 31, 32, 33, 48, 63, 64]

@@ -101,12 +101,14 @@ def test_geometry_gate():
     assert fused.sub_tile(21, fused.LARGE_W_MIN - 1) == 0 and fused.sub_tile(21, 3000) == 0
     assert fused.sub_tile(21, max(5000, fused.LARGE_W_MIN)) == fused.TILE
     assert fused.sub_tile(21, 3000, mode=pipeline.MODE_SUPERKMERS) == 0
-    # the large-w route: per arm the least key of TILE + 1 windows and two
-    # blocks of sub_tile keys, whatever w
+    # the large-w route: no chars and no tables; per arm the least key of
+    # TILE + 1 windows and two blocks of sub_tile keys, each with one pad
+    # word per thread's run of the scan (256) and 8 warp totals, whatever w;
+    # canonical the T/G bits of the tile's chars
     w = 32_767
+    chars = (fused.TILE + 21 + w - 1 + 6) // 4 * 4
     assert (fused._tile_smem_bytes(21, w, True)
-            == ((fused.TILE + 21 + w - 1 + 6) // 4 * 4 + 15) // 16 * 16
-            + 4 * 2 * (fused.TILE + 1 + 2 * fused.TILE) + 32)
+            == 4 * 2 * (fused.TILE + 1 + 2 * (fused.TILE + 256 + 8)) + (chars + 31) // 32 * 4)
     # the stored route: chars, keys in whole 32-word rows (4107 columns take
     # 4128 words an arm), canonical the chars' T/G bits (4132 chars, 130
     # words), then the nt fold's 2-bit tables (2 x 4 words)
@@ -139,6 +141,78 @@ def test_geometry_gate():
         p = fused.min_passes(w)
         assert 0 <= p and 1 << p <= w
         assert -(-w // (1 << p)) <= 2 << fused.PASS_SLACK
+
+
+# (k, w, canonical, mode, ambiguity plane, text, hasher kind): the large-w
+# paths of chip_smoke.py that the layout is sized for, and the blocks per SM
+# each must fit: 228 KiB of shared memory per SM, less 1 KiB reserved and the
+# kernel's 160 B of static shared memory per block
+LARGE_W_PATHS = [
+    ((21, 32_767, True, pipeline.MODE_MINIMIZERS, False, False, "nt"), 107_148, 2),
+    ((21, 61_439, False, pipeline.MODE_MINIMIZERS, True, False, "nt"), 59_468, 3),
+    ((21, 32_767, False, pipeline.MODE_CLOSED_SYNCMERS, False, True, "mul"), 51_268, 4),
+    ((21, 32_767, False, pipeline.MODE_MINIMIZERS, False, True, "mul"), 51_268, 4),
+    ((21, 32_767, True, pipeline.MODE_SUPERKMERS, False, False, "nt"), 107_148, 2),
+    ((21, 21_721, True, pipeline.MODE_MINIMIZERS, False, False, "nt"), 105_768, 2),
+]
+
+
+@pytest.mark.parametrize("geometry,smem,blocks", LARGE_W_PATHS)
+def test_large_w_layout_and_blocks_per_sm(geometry, smem, blocks):
+    """The large-w route's shared memory (no chars, no tables; the scans'
+    padding and warp totals; canonical a T/G bit plane) and the blocks per
+    SM it leaves room for: more than the gate's halo bound (every char one
+    byte, the fold's tables) would."""
+    k, w, canonical, mode, amb, text, kind = geometry
+    t = fused.sub_tile(*geometry)
+    assert t == fused.TILE and fused.fused_supported(*geometry)
+    assert fused._tile_smem_bytes(*geometry) == fused._smem_bytes(*geometry, t) == smem
+    per_sm, reserved, static = 228 * 1024, 1024, 160
+    assert per_sm // (smem + reserved + static) == blocks
+    assert per_sm // (fused._halo_bytes(*geometry, t) + reserved + static) < blocks
+
+
+# (k, w) -> (fused_supported, sub_tile) for canonical nt minimizers, forward
+# nt minimizers with a mask, forward mul super-k-mers of text and canonical
+# antilex closed syncmers of text with a mask: the gate and the routing as
+# the kernel has always had them, whatever its shared memory holds
+GATE_CORNERS = {
+    (21, 8191): [(True, 0)] * 4,
+    (21, 8192): [(True, 4096)] * 4,
+    (21, 42_376): [(True, 4096)] * 4,
+    (21, 61_440): [(True, 4096)] * 4,
+    (21, 61_441): [(False, 4096)] * 4,
+    (190_001, 11): [(True, 8), (False, 8), (True, 0), (False, 8)],
+    (190_001, 63): [(True, 32), (False, 32), (True, 0), (False, 32)],
+    (190_001, 8191): [(False, 4096)] * 4,
+    (190_001, 8192): [(False, 4096)] * 4,
+    (190_001, 42_376): [(False, 4096)] * 4,
+    (190_001, 61_440): [(False, 4096)] * 4,
+    (200_000, 11): [(False, 8)] * 4,
+    (200_000, 63): [(False, 32)] * 4,
+    (200_000, 8192): [(False, 4096)] * 4,
+    (200_000, 61_441): [(False, 4096)] * 4,
+}
+GATE_VARIANTS = [(True, pipeline.MODE_MINIMIZERS, False, False, "nt"),
+                 (False, pipeline.MODE_MINIMIZERS, True, False, "nt"),
+                 (False, pipeline.MODE_SUPERKMERS, False, True, "mul"),
+                 (True, pipeline.MODE_CLOSED_SYNCMERS, True, True, "antilex")]
+
+
+@pytest.mark.parametrize("variant", range(len(GATE_VARIANTS)))
+@pytest.mark.parametrize("k,w", list(GATE_CORNERS))
+def test_gate_and_route_pinned(k, w, variant):
+    """fused_supported and sub_tile at the corners of the geometry: the
+    large-w route's smaller layout widens neither the gate (its halo bound,
+    `_halo_bytes`) nor moves the route; where the gate admits, the layout
+    the kernel uses fits one block's shared memory."""
+    geometry = (k, w, *GATE_VARIANTS[variant])
+    supported, t = GATE_CORNERS[(k, w)][variant]
+    assert fused.fused_supported(*geometry) is supported
+    assert fused.sub_tile(*geometry) == t
+    if supported:
+        assert fused._tile_smem_bytes(*geometry) <= fused._SMEM_MAX
+    assert fused.LARGE_W_MIN == 8192
 
 
 @pytest.mark.parametrize("w,passes,ok", [(11, 0, True), (11, 3, True), (11, 4, False),

@@ -218,10 +218,10 @@ def test_text_geometry_gate():
         for text in (False, True):
             assert (fused._tile_smem_bytes(21, 11, canonical, mode, amb, text, "antilex")
                     == dna - 32)
-    # the tables count on the large-w route too, but there the 16-bit
-    # column bounds w first: 4096 + w <= 2^16 for every input and hasher
+    # the large-w route holds no tables (it reads kmer_top16's tops) and the
+    # 16-bit column bounds w first: 4096 + w <= 2^16 for every input and hasher
     assert (fused._tile_smem_bytes(21, 32_767, True, text=True, kind="mul")
-            == fused._tile_smem_bytes(21, 32_767, True) + 2016)
+            == fused._tile_smem_bytes(21, 32_767, True))
     for text, kind in ((False, "nt"), (True, "mul"), (True, "antilex"), (False, "antilex")):
         assert fused.fused_supported(21, 61_440, False, text=text, kind=kind)
         assert not fused.fused_supported(21, 61_441, False, text=text, kind=kind)
