@@ -91,7 +91,8 @@ Then the paths of the last slices:
   --passes);
 - the two routes of the sliding minimum from w = 16 to the largest w the
   stored route fits (1e7 bases, both strands), bit-equal to each other,
-  timed in turns: where the large-w route starts to win
+  timed in turns (medians of 7 batches of 10 calls; at w = 1,536 the
+  canonical margin is 1-2%): where the large-w route starts to win
   (ops/fused.LARGE_W_MIN);
 - large w at 1e8 chars through `Builder.run`: canonical nt at w = 32,767,
   forward nt at w = 61,439 with the chromosome mask, forward mul text at
@@ -102,11 +103,16 @@ Then the paths of the last slices:
   1e7 chars, kmer_top16 too, each path against the oracle (O(w) per window:
   canonical w = 32,767 at 1e6 chars, the others at 3e5), the density of
   forward closed syncmers against 2/w; at 1e8 the time and bound of the
-  pre-pass, of the route given its tops (beside its time before its
-  conflict-free scan and T/G plane) and of both, the route's dynamic shared
-  memory a block and blocks per SM (the occupancy query), the main path's
-  peak extra device memory, and on the first path kmer_top16 against its
-  plain version (its kernels-line entry);
+  pre-pass (beside its time before its prefix-XOR redesign, and its
+  persistent grid), of the route given its tops (beside its time before
+  its conflict-free scan and T/G plane) and of both, the route's dynamic
+  shared memory a block and blocks per SM (the occupancy query), the main
+  path's peak extra device memory, and on the first path kmer_top16
+  against its plain version (its kernels-line entry); then the peak device
+  memory of canonical w = 2,047 at 1e8 by both routes (what the tops add
+  where the stored route ran before LARGE_W_MIN fell), and the pre-pass
+  alone on canonical nt at k = 31 and 63 over the 1e8 bases, each
+  bit-equal to its plain version at 1e7 chars;
 - `ShortSeqSketcher` (one captured CUDA graph, canonical k=21 w=11):
   `sketch_many` of 10,000 random sequences of 30-8,222 chars, each
   against the oracle, launches counted per replay; `measure_floor` at
@@ -1247,6 +1253,10 @@ N_ORACLE_LARGE_W = 3 * 10**5  # chars of the oracle check of the other large-w p
 # plane (ms; this script on an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md
 # section 5), printed beside this run's
 ROUTE_MS_BEFORE = [6.6486, 5.5819, 3.4580, 6.6620, 2.9574, 6.1364, 6.1557]
+# each path's kmer_top16 at 1e8 chars before its prefix-XOR redesign (ms;
+# this script on an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md section 5)
+TOP16_MS_BEFORE = [0.1880, 0.1599, 0.2484, 0.1858, 0.1618, 0.1846, 0.1840]
+TOP16_K = (31, 63)  # the pre-pass alone at these k too (canonical nt, the same 1e8 bases)
 
 
 def _large_w(ctx):
@@ -1300,8 +1310,12 @@ def _large_w(ctx):
     small_mask = np.zeros(N_ORACLE, bool)
     small_mask[small_rng.integers(0, N_ORACLE, 20)] = True
     sels = {}
-    for (name, b, masked, inp, density_want, n_oracle), before in zip(paths, ROUTE_MS_BEFORE,
-                                                                       strict=True):
+    grids = [fused.top16_grid(K, c, device=dev) for c in (True, False)]
+    print(f"large w: kmer_top16's persistent grid at k={K} on 2-bit input: canonical "
+          f"{grids[0][0]} blocks of {grids[0][1]} B of shared memory, forward {grids[1][0]} of "
+          f"{grids[1][1]} B ({torch.cuda.get_device_properties(dev).multi_processor_count} SMs)")
+    for (name, b, masked, inp, density_want, n_oracle), before, top_before in zip(
+            paths, ROUTE_MS_BEFORE, TOP16_MS_BEFORE, strict=True):
         w, mode = b.w, b._mode
         l = k + w - 1
         s_in = text if inp == "text" else seq
@@ -1363,7 +1377,8 @@ def _large_w(ctx):
               f"{kt[0] * 1e6 / N:.5f} ns/char), kernel path {pt[0]:.4f} ms; bound "
               f"{bound[0]:.4f} ms ({bound[1]}), {kt[0] / bound[0]:.1f}x; {note}")
         print(f"    of which kmer_top16 {top_t[0]:.4f} ms ({top_t[1]:.4f}..{top_t[2]:.4f}; bound "
-              f"{top_bound[0]:.4f} ms, {top_bound[1]}, {top_t[0] / top_bound[0]:.2f}x) and the "
+              f"{top_bound[0]:.4f} ms, {top_bound[1]}, {top_t[0] / top_bound[0]:.2f}x; before "
+              f"the prefix-XOR redesign {top_before:.4f} ms, {top_t[0] / top_before:.3f}x) and the "
               f"route given its tops {route_t[0]:.4f} ms ({route_t[1]:.4f}..{route_t[2]:.4f}; "
               f"bound {route_bound[0]:.4f} ms, {route_bound[1]}, "
               f"{route_t[0] / route_bound[0]:.1f}x; before the conflict-free scan and the T/G "
@@ -1398,6 +1413,53 @@ def _large_w(ctx):
                                f"{n_oracle} chars")
         print(f"  bit-equal to the oracle at {n_oracle} chars ({got[0].size} values; oracle "
               f"{time.perf_counter() - t:.1f} s)")
+
+    # what the large-w route's tops (2 B a k-mer) add to a path of the w
+    # that took the stored route before LARGE_W_MIN fell to the crossover:
+    # canonical w = 2,047 at 1e8 bases, peak extra device memory of the
+    # kernel path by each route, bit-equal
+    chars = convert.packed_words(seq, dev)
+    (kind, canonical, rot), tables = convert.hasher_tensors(smt.NtHasher(k, True), dev)
+    threshold, peaks, outs = fused.LARGE_W_MIN, {}, {}
+    try:
+        for route, thr in (("stored", 1 << 16), ("large-w", threshold)):
+            fused.LARGE_W_MIN = thr
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs[route] = fused.fused_sketch(chars, N, k, 2047, tables, rot, canonical)
+            torch.cuda.synchronize()
+            peaks[route] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    finally:
+        fused.LARGE_W_MIN = threshold
+    if not torch.equal(outs["stored"], outs["large-w"]):
+        raise RuntimeError("the routes disagree at w = 2,047")
+    print(f"large w: canonical w=2047 at {N} bases (LARGE_W_MIN = {threshold}): peak extra device "
+          f"memory of the kernel path, stored route {peaks['stored']:.1f} MiB, large-w route "
+          f"{peaks['large-w']:.1f} MiB (the tops: {2 * (N - k + 1) / 2**20:.1f} MiB); bit-equal")
+    del chars, outs
+
+    # the pre-pass alone at larger k, canonical nt over the same 1e8 bases:
+    # its time beside its bound (O(1) a top whatever k), bit-equal to its
+    # plain version at 1e7 chars
+    chars = convert.packed_words(seq, dev)
+    sub_chars = convert.packed_words(seq.slice(0, N_LARGE_CHECK), dev)
+    for kk in TOP16_K:
+        (kind, canonical, rot), tables = convert.hasher_tensors(smt.NtHasher(kk, True), dev)
+        top_args = (chars, N, kk, tables, rot, canonical)
+        top_t = _median_ms(lambda: fused.kmer_top16(*top_args, kind=kind), 5, 5, 2)
+        top_bound = _top16_bound(N, kk, canonical, kind, False)
+        sub = (sub_chars, N_LARGE_CHECK, kk, tables, rot, canonical)
+        err = _max_abs_err(fused.kmer_top16(*sub, kind=kind),
+                           pipeline.kmer_top16_plain(*sub, kind=kind))
+        if err:
+            raise RuntimeError(f"kmer_top16 at k={kk}: max_abs_err {err} at {N_LARGE_CHECK} chars")
+        print(f"large w: kmer_top16 canonical nt k={kk} at {N} chars {top_t[0]:.4f} ms "
+              f"({top_t[1]:.4f}..{top_t[2]:.4f}; bound {top_bound[0]:.4f} ms, {top_bound[1]}, "
+              f"{top_t[0] / top_bound[0]:.2f}x); bit-equal to its plain version at "
+              f"{N_LARGE_CHECK} chars; {note}")
+    del chars, sub_chars
+    torch.cuda.empty_cache()
 
 
 def _short_sequences(ctx):
@@ -1669,7 +1731,7 @@ def _examples(ctx):
                 raise RuntimeError(f"examples.bench: count {got['count']}")
 
 
-CROSSOVER_W = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+CROSSOVER_W = (16, 32, 64, 128, 256, 512, 1024, 1536, 2048, 3072, 4096, 8192, 16384, 32768)
 N_CROSSOVER = 10**7  # chars of the route comparison
 STORED_W = (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63)  # w of the stored-route sweep
 N_STORED = 10**7  # chars of the stored-route sweep
@@ -1769,9 +1831,10 @@ def _crossover(ctx):
                                    ("stored", 1 << 16)):
                     fused.LARGE_W_MIN = thr
                     outs[route] = fused.fused_sketch(*args)
-                    reps = 1 if route == "stored" and w >= 1 << 14 else 3
-                    times.setdefault(route, []).append(
-                        _median_ms(lambda: fused.minimizer_tiles(*args), 3, reps, 1)[0])
+                    big = route == "stored" and w >= 1 << 14
+                    times.setdefault(route, []).append(_median_ms(
+                        lambda: fused.minimizer_tiles(*args), 3 if big else 7, 1 if big else 10,
+                        1)[0])
                 if not torch.equal(outs["stored"], outs["large"]):
                     raise RuntimeError(f"routes disagree at w={w}")
                 st, lg = (sum(times[r]) / 2 for r in ("stored", "large"))

@@ -16,9 +16,12 @@ the same seed, with CUDA events:
   where it is the longer), and device time per call in a CUDA graph of 20
   calls, replayed; `torch.cumsum` the same two ways beside it;
 - `minimizer_tiles` on the seven large-w paths of chip_smoke.py at 1e8
-  chars: median of 5 batches of 3 calls; where the checkout's wrapper takes
-  `top16`, also the route given the pre-pass's tops (the same median), and
-  where it has `tiles_occupancy`, the blocks per SM of the launch;
+  chars: median of 5 batches of 3 calls; where the checkout has the
+  pre-pass `kmer_top16`, its time alone on the same inputs (median of 5
+  batches of 5 calls) and on canonical nt at k = 21, 31 and 63; where the
+  checkout's wrapper takes `top16`, also the route given the pre-pass's
+  tops (the same median), and where it has `tiles_occupancy`, the blocks
+  per SM of the launch;
 - the `ShortSeqSketcher` replay at 8,192 chars (`measure_floor`'s
   replay_us, canonical k=21 w=11).
 With --passes, in its first round, each DIR whose `minimizer_tiles` takes
@@ -58,6 +61,7 @@ LARGE_W = [
     ("canonical w=21723", True, 21_723, "minimizers", False, "dna"),
     ("canonical code bytes w=32767", True, 32_767, "minimizers", False, "code bytes"),
 ]
+TOP16_K = (21, 31, 63)  # the large-w pre-pass alone, canonical nt over the 1e8 bases
 
 
 def _helpers():
@@ -149,6 +153,9 @@ def _worker(root: str, seed: int, passes: bool) -> dict:
             kw["byte_codes"] = True
         out[f"minimizer_tiles {name}"] = h._median_ms(
             lambda: fused.minimizer_tiles(*args, **kw), 5, 3, 1)[0]
+        if hasattr(fused, "kmer_top16"):
+            out[f"kmer_top16 {name}"] = h._median_ms(
+                lambda: fused.kmer_top16(*args[:3], *args[4:7], **kw), 5, 5, 2)[0]
         if "top16" in inspect.signature(fused.minimizer_tiles).parameters:
             tops = fused.kmer_top16(*args[:3], *args[4:7], **kw)
             out[f"route given its tops {name}"] = h._median_ms(
@@ -157,6 +164,12 @@ def _worker(root: str, seed: int, passes: bool) -> dict:
         if hasattr(fused, "tiles_occupancy"):
             out[f"blocks per SM {name}"] = fused.tiles_occupancy(
                 K, w, can, mode, masked, is_text, kind, dev)[0]
+
+    if hasattr(fused, "kmer_top16"):
+        for k in TOP16_K:
+            t, rot, can, kind = tables(smt.NtHasher(k, canonical=True))
+            out[f"kmer_top16 canonical k={k}"] = h._median_ms(
+                lambda: fused.kmer_top16(dna, N, k, t, rot, can, kind=kind), 5, 5, 2)[0]
 
     codes = np.random.default_rng(seed + 8).integers(0, 4, 8192, dtype=np.uint8)
     sk = ShortSeqSketcher(K, W, smt.NtHasher(K, canonical=True), donate=False, device=dev)

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "smt_minimizer_tiles": ([_I, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _LL, _I,
                              _I, ctypes.c_uint, _P, _I, _I, _P, _P, _P, _I, _P], _I),
     "smt_top16_init": ([_I], _I),
+    "smt_top16_grid": ([_I, _I, _I, _I, _I, _P, _P], _I),
     "smt_kmer_top16": ([_I, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P], _I),
     "smt_tile_offsets": ([_I, _P, _I, _P, _P, _LL, _P], _I),
     "smt_tile_append": ([_I, _P, _P, _P, _I, _I, _P, _P], _I),

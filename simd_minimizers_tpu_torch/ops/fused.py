@@ -16,7 +16,8 @@ wrappers, one per kernel. `minimizer_tiles` takes its stored route (every
 key of the tile, `min_passes(w)` doubling passes, O(log w) per window)
 below w = LARGE_W_MIN and its large-w route (O(1) mins per window) from
 there on, so that every w with TILE + w <= 2^16 fits a block's shared
-memory (`sub_tile`). On the large-w route it first launches a fourth
+memory (`sub_tile`; a k too large for the large-w route's bound keeps the
+stored route where that fits). On the large-w route it first launches a fourth
 kernel, `kmer_top16`, which writes the top 16 hash bits of every k-mer
 once, and the route reads them instead of hashing w + T k-mers per T
 windows. `minimizer_tiles`, `kmer_top16` and `tile_append` can also read
@@ -65,7 +66,7 @@ _KEY_COLUMNS = 1 << 16  # the packed (top16 | column) key keeps 16 column bits
 # O(1) mins per window, keys of two blocks of columns in shared memory)
 # instead of storing every key of the tile and reducing them in doubling
 # passes (O(log w) per window)
-LARGE_W_MIN = 8192  # the H100's crossover (PERF.md, chip_smoke.py's route comparison)
+LARGE_W_MIN = 1536  # the H100's crossover (PERF.md, chip_smoke.py's route comparison)
 # the stored route's window takes 2^PASS_SLACK to 2^(PASS_SLACK + 1) loads
 # per arm: its doubling passes stop PASS_SLACK short of 2^passes <= w; at
 # w = 11 two passes, which the hash runs take in registers, beat one and
@@ -154,13 +155,17 @@ def _halo_bytes(k: int, w: int, canonical: bool, mode: str, ambiguous: bool, tex
 def sub_tile(k: int, w: int, canonical: bool = True, mode: str = pipeline.MODE_MINIMIZERS,
              ambiguous: bool = False, text: bool = False, kind: str = "nt") -> int:
     """The route of minimizer_tiles at this geometry (csrc/minimizers.cu
-    `sub_tile`): 0, the stored route, below LARGE_W_MIN where its layout
-    fits one block's shared memory; else the large-w route's block of
-    columns, the largest power of two <= min(w, TILE)."""
-    if w < LARGE_W_MIN and _smem_bytes(k, w, canonical, mode, ambiguous, text, kind,
-                                       0) <= _SMEM_MAX:
+    `sub_tile`): 0, the stored route, where its layout fits one block's
+    shared memory and w < LARGE_W_MIN, or where the large-w route's gate
+    bound (`_halo_bytes`) does not fit (a huge k: the gate never narrows as
+    LARGE_W_MIN falls); else the large-w route's block of columns, the
+    largest power of two <= min(w, TILE)."""
+    t = min(TILE, 1 << (w.bit_length() - 1))
+    if _smem_bytes(k, w, canonical, mode, ambiguous, text, kind, 0) <= _SMEM_MAX and (
+            w < LARGE_W_MIN
+            or _halo_bytes(k, w, canonical, mode, ambiguous, text, kind, t) > _SMEM_MAX):
         return 0
-    return min(TILE, 1 << (w.bit_length() - 1))
+    return t
 
 
 def _tile_smem_bytes(k: int, w: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
@@ -232,6 +237,25 @@ def tiles_occupancy(k: int, w: int, canonical: bool, mode: str = pipeline.MODE_M
     return blocks.value, smem
 
 
+def top16_grid(k: int, canonical: bool, *, text: bool = False, kind: str = "nt",
+               byte_codes: bool = False, device: torch.device | str = "cuda") -> tuple[int, int]:
+    """(blocks, dynamic shared memory per block in bytes) of a kmer_top16
+    launch at this k and input kind on the card: its persistent grid (SMs x
+    the blocks that fit an SM, from the occupancy query), which a launch of
+    at least that many chunks of 8,192 k-mers starts, each block walking its
+    share of the chunks (csrc/top16.cu)."""
+    dev = require_cuda(device)
+    if dev.type != "cuda":
+        raise ValueError("the grid of a kernel is a property of a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    lib = _library(dev)
+    grid, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _check(lib.smt_top16_grid(dev.index, k, int(canonical), int(text or byte_codes),
+                              int(kind == "antilex"), ctypes.byref(grid), ctypes.byref(smem)),
+           "smt_top16_grid")
+    return grid.value, smem.value
+
+
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {t.device}")
@@ -283,7 +307,8 @@ def kmer_top16(chars: torch.Tensor, n: int, k: int, tables: torch.Tensor | None,
     `minimizer_tiles`), (max(n - k + 1, 0),) int16 holding the u16 bits.
     With `meta` (on the card only) the kernel reads the length from meta[0]
     and writes the tops of that many chars' k-mers; n sizes the array and
-    bounds the length.
+    bounds the length. On the card a persistent grid (`top16_grid`) hashes
+    each top in O(1) whatever k (csrc/top16.cu).
 
     Inside a CUDA-graph capture the launch is not counted in LAUNCHES."""
     if chars.dtype != torch.uint8:

@@ -128,7 +128,7 @@ def _draw_w(rng, large: bool) -> int:
         return int(rng.integers(1, 64))
     if u < 0.85:
         return int(rng.integers(64, 600))
-    return int(rng.integers(600, 2601))
+    return int(rng.integers(600, min(2601, fused.LARGE_W_MIN)))  # below the large-w route
 
 
 def _draw_n(rng, l: int, large: bool, cap: int | None) -> int:

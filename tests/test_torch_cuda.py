@@ -1037,34 +1037,51 @@ def test_stored_route_any_pass_count(dev, slack, w):
 # -- the large-w route's pre-pass (csrc/top16.cu) ----------------------------
 
 TOP16_KINDS = {"nt": NtHasher, "mul": MulHasher, "antilex": AntiLexHasher}
-TOP16_N = [0, 1, 10_000, 3 * 8192 + 5, 200_003]  # chars past k - 1: across the blocks' seams
+TOP16_N = [0, 1, 10_000, 3 * 8192 + 5, 200_003]  # chars past k - 1: across the chunks' seams
+TOP16_CHUNK = 8192  # k-mers per chunk of csrc/top16.cu
+# k at the corners of the kernel's streams: one word of 16 codes, the
+# antilex tops' 8 and 16 chars, the 64-char region boundary, past a chunk
+TOP16_K = [1, 2, 5, 15, 16, 17, 21, 31, 32, 33, 63, 64, 100, TOP16_CHUNK + 3]
+
+
+def _top16_inputs(codes, text, dev):
+    """(chars, keywords) of the pre-pass: the 2-bit byte stream, code bytes
+    (high bits set, also from an odd byte) and text."""
+    odd = convert.code_bytes(np.concatenate([[7], codes | 0xF0]).astype(np.uint8), dev)[1:]
+    return [(convert.packed_words(PackedSeqVec.from_codes(codes), dev), {}),
+            (convert.code_bytes(codes | 0xF0, dev), {"byte_codes": True}),
+            (odd, {"byte_codes": True}),
+            (convert.text_bytes(GenericSeq(text), dev), {"text": True})]
+
+
+def _top16_both(chars, n, k, h, dev, **kw):
+    """(kernel, plain version) of the pre-pass on the card."""
+    (kd, can, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev,
+                                                    kw.get("text", False))
+    got = fused.kmer_top16(chars, n, k, tables, rot, can, kind=kd, **kw)
+    want = pipeline.kmer_top16_plain(chars, n, k, tables, rot, can, kind=kd, **kw)
+    assert got.dtype == torch.int16
+    return got, want
 
 
 @pytest.mark.parametrize("kind", list(TOP16_KINDS))
 @pytest.mark.parametrize("canonical", [False, True])
-@pytest.mark.parametrize("k", [1, 5, 21, 31, 64])
+@pytest.mark.parametrize("k", TOP16_K)
 def test_kmer_top16_vs_plain(dev, kind, canonical, k):
     """The pre-pass against its plain version on the card (exact) at
     n in {k - 1, k, 10,000, ...} on the 2-bit byte stream, code bytes (high
-    bits set, also from an odd byte) and text; and with `meta` over a
-    buffer sized for more chars."""
+    bits set, also from an odd byte) and text, and against the JAX
+    package's hasher where that is quick; and with `meta` over a buffer
+    sized for more chars."""
     rng = np.random.default_rng(k + 100 * canonical)
     h = TOP16_KINDS[kind](k, canonical=canonical)
     for n in (k - 1 + d for d in TOP16_N):
         codes = rng.integers(0, 4, n, dtype=np.uint8)
         text = rng.integers(0, 256, n, dtype=np.uint8)
-        odd = convert.code_bytes(np.concatenate([[7], codes | 0xF0]).astype(np.uint8), dev)[1:]
-        inputs = [(convert.packed_words(PackedSeqVec.from_codes(codes), dev), {}),
-                  (convert.code_bytes(codes | 0xF0, dev), {"byte_codes": True}),
-                  (odd, {"byte_codes": True}),
-                  (convert.text_bytes(GenericSeq(text), dev), {"text": True})]
-        for chars, kw in inputs:
-            is_text = kw.get("text", False)
-            (kd, can, rot), tables = convert.hasher_tensors(convert.hasher_from(h), dev, is_text)
-            got = fused.kmer_top16(chars, n, k, tables, rot, can, kind=kd, **kw)
-            want = pipeline.kmer_top16_plain(chars, n, k, tables, rot, can, kind=kd, **kw)
-            assert got.dtype == torch.int16 and torch.equal(got, want), (n, kw)
-            if not is_text:
+        for chars, kw in _top16_inputs(codes, text, dev):
+            got, want = _top16_both(chars, n, k, h, dev, **kw)
+            assert torch.equal(got, want), (n, kw)
+            if not kw.get("text") and n * k <= 2 * 10**7:  # the hasher's fold is O(k) a k-mer
                 ref = (h.hash_kmers_np(codes) >> 16).astype(np.uint16)
                 np.testing.assert_array_equal(got.cpu().numpy().view(np.uint16), ref)
     # meta: the length read on the card, the array sized by the buffer
@@ -1078,6 +1095,98 @@ def test_kmer_top16_vs_plain(dev, kind, canonical, k):
                                meta=meta)
         want = pipeline.kmer_top16_plain(chars, n, k, tables, rot, can, kind=kd, byte_codes=True)
         assert got.numel() == cap - k + 1 and torch.equal(got[:want.numel()], want)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_kmer_top16_largest_gate_k(dev, canonical):
+    """At w = 32,767 the largest k the gate admits (nt, and text mul): the
+    pre-pass's shared memory is fixed, so it takes any such k."""
+    k = _largest_gate_k(32_767, canonical)
+    rng = np.random.default_rng(k)
+    n = k + 3 * TOP16_CHUNK + 7
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    text = rng.integers(0, 256, n, dtype=np.uint8)
+    for (chars, kw), h in zip(_top16_inputs(codes, text, dev),
+                              [NtHasher(k, canonical=canonical)] * 3 + [MulHasher(k, canonical=canonical)]):
+        got, want = _top16_both(chars, n, k, h, dev, **kw)
+        assert torch.equal(got, want), (k, kw)
+
+
+def _largest_gate_k(w, canonical):
+    """The largest k with fused_supported(k, w) (the halo bound falls with
+    k), by bisection."""
+    lo, hi = 1, 1 << 20
+    assert fused.fused_supported(lo, w, canonical) and not fused.fused_supported(hi, w, canonical)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fused.fused_supported(mid, w, canonical) else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_kmer_top16_unaligned_views(dev, offset):
+    """Chars views that start 1 .. 15 bytes past a 16-byte boundary (no bulk
+    copy: the kernel's plain loads) on every input kind, both strands."""
+    rng = np.random.default_rng(offset)
+    n = 3 * TOP16_CHUNK + 4 * offset + 40
+    codes = rng.integers(0, 4, n + 64, dtype=np.uint8)
+    text = rng.integers(0, 256, n + 64, dtype=np.uint8)
+    packed = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
+    views = [(packed[offset:], {}),
+             (convert.code_bytes(codes | 0xF0, dev)[offset:], {"byte_codes": True}),
+             (convert.text_bytes(GenericSeq(text), dev)[offset:], {"text": True})]
+    for chars, kw in views:
+        for canonical in (False, True):
+            for h in (NtHasher(21, canonical=canonical), AntiLexHasher(17, canonical=canonical)):
+                got, want = _top16_both(chars, n, h.k, h, dev, **kw)
+                assert chars.data_ptr() % 16 and torch.equal(got, want), (offset, kw, h)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_kmer_top16_chunk_and_grid_edges(dev, canonical):
+    """k-mer counts at a chunk's edge and at the persistent grid's whole
+    first pass (one chunk a block), each +- 1."""
+    k = 21
+    grid, smem = fused.top16_grid(k, canonical, device=dev)
+    assert grid >= torch.cuda.get_device_properties(dev).multi_processor_count and smem > 0
+    rng = np.random.default_rng(grid)
+    codes = rng.integers(0, 4, (grid + 1) * TOP16_CHUNK + k, dtype=np.uint8)
+    chars = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
+    h = NtHasher(k, canonical=canonical)
+    for kmers in (TOP16_CHUNK + d for d in (-1, 0, 1)):
+        got, want = _top16_both(chars, kmers + k - 1, k, h, dev)
+        assert torch.equal(got, want), kmers
+    for kmers in (grid * TOP16_CHUNK + d for d in (-1, 0, 1)):
+        got, want = _top16_both(chars, kmers + k - 1, k, h, dev)
+        assert torch.equal(got, want), kmers
+
+
+def test_kmer_top16_meta_in_a_graph(dev):
+    """A captured launch reads its length from meta[0] on each replay: its
+    tops equal the plain version of that many chars, and it writes nothing
+    past them."""
+    k = 31
+    cap = 5 * TOP16_CHUNK + k + 11
+    codes = np.random.default_rng(31).integers(0, 4, cap, dtype=np.uint8)
+    chars = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
+    h = convert.hasher_from(NtHasher(k, canonical=True))
+    (kd, can, rot), tables = convert.hasher_tensors(h, dev)
+    meta = torch.tensor([cap, 0], dtype=torch.int32, device=dev)
+    fused.kmer_top16(chars, cap, k, tables, rot, can, kind=kd, meta=meta)  # set-up, outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tops = fused.kmer_top16(chars, cap, k, tables, rot, can, kind=kd, meta=meta)
+    sentinel = 0x5A5A
+    for n in (cap, cap - 1, k - 1 + TOP16_CHUNK + 1, k - 1 + TOP16_CHUNK, k + 1, k, k - 1):
+        meta.fill_(0)
+        meta[0] = n
+        tops.fill_(sentinel)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = pipeline.kmer_top16_plain(chars, n, k, tables, rot, can, kind=kd)
+        assert torch.equal(tops[:want.numel()], want), n
+        assert bool((tops[want.numel():] == sentinel).all()), n
 
 
 def test_large_w_route_reads_the_prepass(dev):

@@ -98,9 +98,10 @@ def test_geometry_gate():
         assert not fused.fused_supported(21, (1 << 16) - fused.TILE + 1, canonical)
     assert fused.fused_supported(21, 11) and fused.fused_supported(64, 2)
     assert not fused.fused_supported(200_000, 11)
-    assert fused.sub_tile(21, fused.LARGE_W_MIN - 1) == 0 and fused.sub_tile(21, 3000) == 0
+    assert fused.sub_tile(21, fused.LARGE_W_MIN - 1) == 0 and fused.sub_tile(21, 1000) == 0
     assert fused.sub_tile(21, max(5000, fused.LARGE_W_MIN)) == fused.TILE
-    assert fused.sub_tile(21, 3000, mode=pipeline.MODE_SUPERKMERS) == 0
+    assert fused.sub_tile(21, 3000) == fused.sub_tile(21, 3000, mode=pipeline.MODE_SUPERKMERS) == 2048
+    assert fused.sub_tile(21, 1000, mode=pipeline.MODE_SUPERKMERS) == 0
     # the large-w route: no chars and no tables; per arm the least key of
     # TILE + 1 windows and two blocks of sub_tile keys, each with one pad
     # word per thread's run of the scan (256) and 8 warp totals, whatever w;
@@ -174,16 +175,21 @@ def test_large_w_layout_and_blocks_per_sm(geometry, smem, blocks):
 
 # (k, w) -> (fused_supported, sub_tile) for canonical nt minimizers, forward
 # nt minimizers with a mask, forward mul super-k-mers of text and canonical
-# antilex closed syncmers of text with a mask: the gate and the routing as
-# the kernel has always had them, whatever its shared memory holds
+# antilex closed syncmers of text with a mask: the gate as the kernel has
+# always had it, whatever its shared memory holds, and the routing from
+# LARGE_W_MIN = 1,536 (the stored route below it, and above it where the
+# large-w route's bound does not fit a huge k but the stored layout does)
 GATE_CORNERS = {
-    (21, 8191): [(True, 0)] * 4,
+    (21, 1535): [(True, 0)] * 4,
+    (21, 1536): [(True, 1024)] * 4,
+    (21, 8191): [(True, 4096)] * 4,
     (21, 8192): [(True, 4096)] * 4,
     (21, 42_376): [(True, 4096)] * 4,
     (21, 61_440): [(True, 4096)] * 4,
     (21, 61_441): [(False, 4096)] * 4,
     (190_001, 11): [(True, 8), (False, 8), (True, 0), (False, 8)],
     (190_001, 63): [(True, 32), (False, 32), (True, 0), (False, 32)],
+    (130_001, 4096): [(True, 0), (True, 4096), (True, 4096), (False, 4096)],
     (190_001, 8191): [(False, 4096)] * 4,
     (190_001, 8192): [(False, 4096)] * 4,
     (190_001, 42_376): [(False, 4096)] * 4,
@@ -212,7 +218,7 @@ def test_gate_and_route_pinned(k, w, variant):
     assert fused.sub_tile(*geometry) == t
     if supported:
         assert fused._tile_smem_bytes(*geometry) <= fused._SMEM_MAX
-    assert fused.LARGE_W_MIN == 8192
+    assert fused.LARGE_W_MIN == 1536
 
 
 @pytest.mark.parametrize("w,passes,ok", [(11, 0, True), (11, 3, True), (11, 4, False),
