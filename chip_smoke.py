@@ -36,7 +36,9 @@ each way, through pageable and pinned host memory).
 Then k-mer values of the 1e8 bases through `Output` after `Builder.run` on
 the card (the kmer_values kernel, csrc/values.cu): values_u64 of canonical
 and forward minimizers at k=21, values_u128_limbs of canonical k=33 and
-forward k=64 minimizers, each a main path that launches the kernel once;
+forward k=64 minimizers, each a main path that launches the kernel once,
+and the canonical positions in a random order through
+`device_values.kmer_values_u64` (equal to the sorted run's values);
 the kernel against its plain version at the same shapes (bit-equal), the
 entry point against the kernel's limbs and the host (the native extractor
 on 1e6 positions, NumPy's u128 limbs on 1e5), the kernel's time and bound,
@@ -363,7 +365,8 @@ class _Kernels:
         lib = "" if library is None else f", library {library[0]:.4f} ms"
         print(f"  {name}: max_abs_err {err}; kernel {kt[0]:.4f} ms "
               f"({kt[1]:.4f}..{kt[2]:.4f}), plain {pt[0]:.4f} ms ({pt[1]:.4f}..{pt[2]:.4f}), "
-              f"bound {bound[0]:.4f} ms ({bound[1]}){lib}")
+              f"bound {bound[0]:.4f} ms ({bound[1]}), share of the bound "
+              f"{bound[0] / kt[0]:.3f}{lib}")
         if err:
             raise RuntimeError(f"{name} disagrees with its plain version: max_abs_err {err}")
 
@@ -609,7 +612,34 @@ def _values(ctx):
                      f" on {N_NUMPY_VALUES} positions ({t_numpy * 1e9 / N_NUMPY_VALUES:.1f} "
                      f"ns/value; {t_numpy * m / N_NUMPY_VALUES:.2f} s scaled to {m})")
         print(line + f"; {note}")
+        if name == "kmer_values":
+            _permuted_values(ctx, chars, pos, res)
         del out, res, pos_t
+
+
+def _permuted_values(ctx, chars, pos, want):
+    """The canonical values of the same positions in a random order, a
+    main path through `device_values.kmer_values_u64` (which takes any u32
+    positions): each value equals the sorted run's, and the kernel on the
+    permuted positions against its plain version."""
+    import numpy as np
+    import torch
+
+    from simd_minimizers_tpu_torch.ops import device_values
+
+    perm = np.random.default_rng(ctx["seed"] + 13).permutation(pos.size)
+    res, wall, launched, _ = _main_path(
+        lambda: device_values.kmer_values_u64(chars, pos[perm], K, True))
+    name = "kmer_values [canonical, permuted positions]"
+    print(f"values: {name}, {pos.size} positions: main path launches {launched}, wall "
+          f"{wall * 1e3:.2f} ms")
+    if launched != {"kmer_values": 1}:
+        raise RuntimeError(f"{name}: the main path launched {launched}")
+    if not np.array_equal(res, want[perm]):
+        raise RuntimeError(f"{name}: the values differ from the sorted positions' values")
+    ctx["rec"].tally(launched, "kmer_values", name[len("kmer_values"):])
+    pos_t = torch.from_numpy(pos[perm].view(np.int32)).to(ctx["dev"])
+    _values_entry(ctx["rec"], name, chars, pos_t, K, True)
 
 
 def _bus(ctx):

@@ -1,6 +1,6 @@
 """Time the port's kernels in several checkouts of the repo, in turns, on one CUDA card.
 
-    python3 kernel_ab.py DIR [DIR ...] [--rounds R] [--seed S] [--passes]
+    python3 kernel_ab.py DIR [DIR ...] [--rounds R] [--seed S] [--passes] [--small]
 
 Each DIR is the root of a checkout of the repo (for example a commit's
 `git archive`, unpacked into a directory that .gitignore lists). The
@@ -23,10 +23,24 @@ the same seed, with CUDA events:
   tops (the same median), and where it has `tiles_occupancy`, the blocks
   per SM of the launch;
 - the `ShortSeqSketcher` replay at 8,192 chars (`measure_floor`'s
-  replay_us, canonical k=21 w=11).
-With --passes, in its first round, each DIR whose `minimizer_tiles` takes
-`passes` also times every doubling-pass count of the stored route at k=21
-w=11 over the 1e8 bases, each bit-equal to the default.
+  replay_us, canonical k=21 w=11);
+- `device_values.kmer_values_limbs` on the positions of the kernel path
+  over the 1e8 bases (canonical and forward k=21, canonical k=33, forward
+  k=64; canonical k=21 also in a random permutation) and on code bytes of
+  the first 46,709,983 bases (chr21's length, the FASTA CLI's values step)
+  at the canonical positions inside them, and `fused.tile_append` on the
+  canonical, canonical open-syncmer and canonical super-k-mer (two planes)
+  launches at w=11: median of 5 batches of 10 calls, each beside its bound
+  (chip_smoke.py's: bytes moved once, or integer operations) as
+  "bound ..." and its share of it as "share ..." (bound / time); beside
+  each tile_append, `Tensor.copy_` of as many contiguous ints (the card's
+  own copy of the same bytes, not the same function).
+With --small, each process times only `minimizer_tiles` and the kernel
+path at w=11, the replay and the last item (the paths that kmer_values and
+tile_append run on), for variants of those two kernels. With --passes, in
+its first round, each DIR whose `minimizer_tiles` takes `passes` also
+times every doubling-pass count of the stored route at k=21 w=11 over the
+1e8 bases, each bit-equal to the default.
 Each process prints one JSON line of its numbers (ms; replay in us); at the
 end comes a table of each number, per DIR the mean of its runs, and its
 ratio to the first DIR's. Only the API that every slice of the port has is
@@ -62,6 +76,7 @@ LARGE_W = [
     ("canonical code bytes w=32767", True, 32_767, "minimizers", False, "code bytes"),
 ]
 TOP16_K = (21, 31, 63)  # the large-w pre-pass alone, canonical nt over the 1e8 bases
+CHR21 = 46_709_983  # GRCh38 chr21's length: the code bytes of kmer_values' CLI path
 
 
 def _helpers():
@@ -81,7 +96,7 @@ def _build(root: str) -> None:
     print(f"built {root} in {b.build_seconds:.1f} s", file=sys.stderr)
 
 
-def _worker(root: str, seed: int, passes: bool) -> dict:
+def _worker(root: str, seed: int, passes: bool, small: bool) -> dict:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -106,6 +121,11 @@ def _worker(root: str, seed: int, passes: bool) -> dict:
         (kind, canonical, rot), t = convert.hasher_tensors(hasher, dev, is_text)
         return t, rot, canonical, kind
 
+    def replay():
+        codes = np.random.default_rng(seed + 8).integers(0, 4, 8192, dtype=np.uint8)
+        sk = ShortSeqSketcher(K, W, smt.NtHasher(K, canonical=True), donate=False, device=dev)
+        out["ShortSeqSketcher replay_us"] = sk.measure_floor(codes)["replay_us"]
+
     def scan(counts, tag):
         eager = h._median_ms(lambda: fused.tile_offsets(counts), 5, 10, 2)[0]
         graph = h._graph_ms(lambda: fused.tile_offsets(counts))[0]
@@ -124,6 +144,8 @@ def _worker(root: str, seed: int, passes: bool) -> dict:
             lambda: fused.minimizer_tiles(*args), 5, 10, 2)[0]
         out[f"kernel path w=11 {strand}"] = h._median_ms(
             lambda: fused.fused_sketch(*args), 5, 10, 2)[0]
+        if small:
+            continue
         if canonical:
             _, counts = fused.minimizer_tiles(*args)
             scan(counts, f"{counts.numel()}")
@@ -136,6 +158,10 @@ def _worker(root: str, seed: int, passes: bool) -> dict:
                     raise RuntimeError(f"{p} passes disagree with the default")
                 out[f"minimizer_tiles w=11 {strand} passes={p}"] = h._median_ms(
                     lambda: fused.minimizer_tiles(*args, passes=p), 5, 10, 2)[0]
+    if small:
+        replay()
+        _values_and_append(out, h, seq, dna, dev, tables, seed)
+        return out
     g = torch.Generator(device=dev).manual_seed(seed)
     span_counts = torch.randint(0, 2 * fused.TILE // (W + 1), (SPAN_TILES,), dtype=torch.int32,
                                 device=dev, generator=g)
@@ -171,10 +197,65 @@ def _worker(root: str, seed: int, passes: bool) -> dict:
             out[f"kmer_top16 canonical k={k}"] = h._median_ms(
                 lambda: fused.kmer_top16(dna, N, k, t, rot, can, kind=kind), 5, 5, 2)[0]
 
-    codes = np.random.default_rng(seed + 8).integers(0, 4, 8192, dtype=np.uint8)
-    sk = ShortSeqSketcher(K, W, smt.NtHasher(K, canonical=True), donate=False, device=dev)
-    out["ShortSeqSketcher replay_us"] = sk.measure_floor(codes)["replay_us"]
+    replay()
+    _values_and_append(out, h, seq, dna, dev, tables, seed)
     return out
+
+
+def _timed(out, h, name, fn, bound):
+    ms = h._median_ms(fn, 5, 10, 2)[0]
+    out[name] = ms
+    out[f"bound {name}"] = bound[0]
+    out[f"share {name}"] = bound[0] / ms
+
+
+def _values_and_append(out, h, seq, dna, dev, tables, seed):
+    """kmer_values and tile_append at the shapes of the main paths."""
+    import torch
+
+    import simd_minimizers_tpu_torch as smt
+    from simd_minimizers_tpu_torch import convert
+    from simd_minimizers_tpu_torch.ops import device_values, fused, pipeline
+
+    def positions(k, canonical):
+        t, rot, can, kind = tables(smt.NtHasher(k, canonical=canonical))
+        return fused.fused_sketch(dna, N, k, W, t, rot, can)
+
+    def values(name, chars, pos, k, canonical, byte_codes=False):
+        m, L = pos.numel(), device_values.limb_count(k)
+        bound = h._bound(chars.numel() + 4 * m + 4 * m * L,
+                         m * h._values_ops_per_position(k, canonical))
+        _timed(out, h, f"kmer_values {name}", lambda: device_values.kmer_values_limbs(
+            chars, pos, k, canonical, byte_codes), bound)
+
+    can21 = positions(K, True)
+    values("canonical k=21", dna, can21, K, True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    values("canonical k=21 permuted", dna,
+           can21[torch.randperm(can21.numel(), device=dev, generator=g)], K, True)
+    values("forward k=21", dna, positions(K, False), K, False)
+    values("canonical k=33", dna, positions(33, True), 33, True)
+    values("forward k=64", dna, positions(64, False), 64, False)
+    codes = convert.code_bytes(seq.codes()[:CHR21], dev)
+    values("code bytes (chr21 length)", codes, can21[can21 <= CHR21 - K], K, True,
+           byte_codes=True)
+    del codes, can21
+
+    for name, mode in (("canonical", pipeline.MODE_MINIMIZERS),
+                       ("canonical open syncmers", pipeline.MODE_OPEN_SYNCMERS),
+                       ("canonical super-k-mers", pipeline.MODE_SUPERKMERS)):
+        t, rot, can, kind = tables(smt.NtHasher(K, canonical=True))
+        scratch, counts = fused.minimizer_tiles(dna, N, K, W, t, rot, can, mode)
+        offsets = fused.tile_offsets(counts)
+        total = int(offsets[-1])
+        planes = 2 if mode == pipeline.MODE_SUPERKMERS else 1
+        bound = h._bound(2 * 4 * planes * total + 4 * (2 * counts.numel() + 1), planes * total)
+        _timed(out, h, f"tile_append {name}",
+               lambda: fused.tile_append(scratch, counts, offsets, total), bound)
+        src = scratch.view(-1)[:planes * total]
+        dst = torch.empty(planes * total, dtype=torch.int32, device=dev)
+        out[f"copy_ of as many ints, {name}"] = h._median_ms(lambda: dst.copy_(src), 5, 10, 2)[0]
+        del scratch, src, dst
 
 
 def main() -> int:
@@ -183,6 +264,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--passes", action="store_true")
+    ap.add_argument("--small", action="store_true")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--build", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -190,7 +272,7 @@ def main() -> int:
         _build(args.dirs[0])
         return 0
     if args.worker:
-        print(json.dumps(_worker(args.dirs[0], args.seed, args.passes)))
+        print(json.dumps(_worker(args.dirs[0], args.seed, args.passes, args.small)))
         return 0
 
     import torch
@@ -209,7 +291,8 @@ def main() -> int:
     runs = {d: [] for d in dirs}
     for r in range(args.rounds):
         for d in (dirs if r % 2 == 0 else dirs[::-1]):
-            extra = ["--passes"] if args.passes and r == 0 else []
+            extra = (["--passes"] if args.passes and r == 0 else []) + (
+                ["--small"] if args.small else [])
             res = subprocess.run([*me, "--worker", d, "--seed", str(args.seed), *extra],
                                  capture_output=True, text=True, env=dict(os.environ))
             if res.returncode:
@@ -221,7 +304,8 @@ def main() -> int:
     base = dirs[0]
     keys = [key for key in dict.fromkeys(key for d in [base, *dirs] for run in runs[d]
                                          for key in run) if key != "root"]
-    print("\nmean of each DIR's runs (ms; replay us), and its ratio to " + base)
+    print("\nmean of each DIR's runs (ms; replay us; shares as fractions), and its ratio to "
+          + base)
     print(" | ".join(["number"] + dirs))
     for key in keys:
         means = [[run[key] for run in runs[d] if key in run] for d in dirs]

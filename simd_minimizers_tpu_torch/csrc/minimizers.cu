@@ -44,7 +44,8 @@
 //   2. tile_offsets: one block per SCAN_BLOCK counts takes the exclusive
 //      scan of the counts in a single pass (a decoupled look-back) and
 //      writes the total behind them (the running total the TPU kept in SMEM).
-//   3. tile_append: copies each tile's run of each plane to its global offset.
+//   3. tile_append: copies each tile's run of each plane to its global offset
+//      (a persistent grid of warps; see below).
 // Each has its own C entry point (and Python wrapper, ops/fused.py); the
 // shared-memory limit of every minimizer_tiles instance is raised once per
 // card (smt_init). All 12 strand x mode x ambiguity-plane instances are built
@@ -139,6 +140,24 @@
 // the last block to finish zeroes the status words: a launch needs no
 // memset, eager or in a CUDA graph, and the card keeps one set of words
 // (ops/fused.tile_offsets).
+//
+// tile_append moves 8 B per kept value and plane (the run read once,
+// written once): 0.040 ms at 1e8 chars canonical, w = 11. A block per tile
+// and plane would spend more on its three dependent loads and on block
+// turnover than on the copy: 24,415 blocks (48,830 with two planes) of 256
+// threads that copy about 683 ints canonical, 372 for open syncmers. So a
+// persistent grid (the SMs times the blocks an SM holds, from the occupancy
+// query; ops/fused.append_grid) of warps walks the tiles, warp g of G
+// taking tiles g, g + G, ...: its lanes load the counts and offsets of its
+// next 32 tiles with one load each, and a tile's run (16-byte aligned in
+// the scratch) is read 16 bytes a lane, six loads a lane in flight before
+// any store, so that a warp takes a typical run (683 ints canonical) in one
+// round trip: a short sequence's one or two tiles wait on no second one
+// (four loads took 2% longer on the short replay; PERF.md). The
+// destination offset is any int, and the stores stay four bytes: stores
+// realigned to 16 bytes by a warp shuffle take as long on the H100. What
+// is left is the card's rate for reads and writes mixed: torch's own
+// device copy of as many bytes takes 0.90-0.97 of the time.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -149,6 +168,9 @@ constexpr int TILE = 4096;               // windows per block
 constexpr int THREADS = 256;             // threads per block
 constexpr int WPT = TILE / THREADS;      // windows per thread
 constexpr int SCAN_THREADS = 256;
+constexpr int APPEND_THREADS = 256;
+constexpr int APPEND_WARPS = APPEND_THREADS / 32;  // tiles a block of tile_append copies at once
+constexpr int APPEND_UNROLL = 6;  // 16-byte loads a lane keeps in flight
 constexpr int SCAN_VECS = 1;                              // int4 loads per thread
 constexpr int SCAN_BLOCK = 4 * SCAN_VECS * SCAN_THREADS;  // counts per block of tile_offsets
 constexpr unsigned long long SCAN_AGG = 1ull << 32;  // status: the block's sum in the low word
@@ -946,17 +968,64 @@ tile_offsets(const int* __restrict__ counts, int ntiles, int* __restrict__ offse
   }
 }
 
-// B8, part 2: tile blockIdx.x's run of plane blockIdx.y to its global
-// offset; plane p of the output starts at p * total.
-__global__ void __launch_bounds__(THREADS)
+// B8, part 2: each tile's run of each plane to its global offset; plane p
+// of the output starts at p * total, total = offsets[ntiles] (read on the
+// card, so that a CUDA-graph capture need not know it). See the header for
+// the design: a persistent grid of warps, one tile at a time per warp.
+
+// One warp copies c ints from src (16-byte aligned: a tile's run) to dst
+// (any int address): 16-byte loads, APPEND_UNROLL a lane in flight, and
+// each unit's four ints stored one at a time (the warp's stores of a row of
+// units cover 512 contiguous bytes, which L2 merges into whole sectors).
+__device__ __forceinline__ void append_run(const int* __restrict__ src, int* __restrict__ dst,
+                                           int c, int lane) {
+  const int4* in = reinterpret_cast<const int4*>(src);
+  const int units = (c + 3) >> 2;
+  for (int u0 = 0; u0 < units; u0 += 32 * APPEND_UNROLL) {
+    int4 v[APPEND_UNROLL];
+#pragma unroll
+    for (int r = 0; r < APPEND_UNROLL; ++r) {
+      const int u = u0 + 32 * r + lane;
+      v[r] = u < units ? __ldg(in + u) : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int r = 0; r < APPEND_UNROLL; ++r) {
+      const int u = u0 + 32 * r + lane;
+      if (u >= units) break;
+      int* d = dst + 4 * u;
+      if (4 * u < c) d[0] = v[r].x;
+      if (4 * u + 1 < c) d[1] = v[r].y;
+      if (4 * u + 2 < c) d[2] = v[r].z;
+      if (4 * u + 3 < c) d[3] = v[r].w;
+    }
+  }
+}
+
+// Warp g of the grid's G copies tiles g, g + G, g + 2G, ...; its lanes
+// load the counts and offsets of its next 32 tiles at once.
+__global__ void __launch_bounds__(APPEND_THREADS)
 tile_append(const int* __restrict__ scratch, const int* __restrict__ counts,
-            const int* __restrict__ offsets, int* __restrict__ out) {
-  const int c = counts[blockIdx.x];
-  const int o = offsets[blockIdx.x];
-  const long long total = offsets[gridDim.x];
-  const int* src = scratch + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * TILE;
-  int* dst = out + blockIdx.y * total + o;
-  for (int i = threadIdx.x; i < c; i += THREADS) dst[i] = src[i];
+            const int* __restrict__ offsets, int ntiles, int planes, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * APPEND_WARPS;
+  const long long total = __ldg(offsets + ntiles);
+  for (long long t0 = (long long)blockIdx.x * APPEND_WARPS + (threadIdx.x >> 5); t0 < ntiles;
+       t0 += 32 * warps) {
+    const long long t = t0 + lane * warps;
+    int c = 0, o = 0;
+    if (t < ntiles) {
+      c = __ldg(counts + t);
+      o = __ldg(offsets + t);
+    }
+    for (int j = 0; j < 32 && t0 + j * warps < ntiles; ++j) {
+      const int cj = __shfl_sync(0xFFFFFFFFu, c, j);
+      const int oj = __shfl_sync(0xFFFFFFFFu, o, j);
+      if (cj == 0) continue;
+      const long long tj = t0 + j * warps;
+      for (int p = 0; p < planes; ++p)
+        append_run(scratch + ((long long)p * ntiles + tj) * TILE, out + p * total + oj, cj, lane);
+    }
+  }
 }
 
 using TilesKernel = void (*)(const uint8_t*, long long, int, int, int, int, int, int,
@@ -1085,13 +1154,31 @@ int smt_tile_offsets(int device, const void* counts, int ntiles, void* offsets, 
   return (int)cudaGetLastError();
 }
 
-// planes: 1, or 2 for super-k-mers; out holds planes * total ints.
-int smt_tile_append(int device, const void* scratch, const void* counts, const void* offsets,
-                    int ntiles, int planes, void* out, void* stream) {
+// *blocks_per_sm: the blocks of tile_append that one SM of card `device`
+// holds at once (the occupancy query); *warps_per_block: the tiles each
+// block copies at once. ops/fused.append_grid sizes the persistent grid
+// from them.
+int smt_append_occupancy(int device, int* blocks_per_sm, int* warps_per_block) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  tile_append<<<dim3(ntiles, planes), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)scratch, (const int*)counts, (const int*)offsets, (int*)out);
+  if (blocks_per_sm == nullptr || warps_per_block == nullptr) return (int)cudaErrorInvalidValue;
+  *warps_per_block = APPEND_WARPS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, tile_append,
+                                                            APPEND_THREADS, 0);
+}
+
+// planes: 1, or 2 for super-k-mers; out holds planes * total ints; scratch
+// is 16-byte aligned; blocks: the grid (ops/fused.append_grid), any
+// count >= 1 copies every tile.
+int smt_tile_append(int device, const void* scratch, const void* counts, const void* offsets,
+                    int ntiles, int planes, int blocks, void* out, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (ntiles < 1 || planes < 1 || planes > 2 || blocks < 1 ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) || (reinterpret_cast<uintptr_t>(out) & 3))
+    return (int)cudaErrorInvalidValue;
+  tile_append<<<blocks, APPEND_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)scratch, (const int*)counts, (const int*)offsets, ntiles, planes, (int*)out);
   return (int)cudaGetLastError();
 }
 

@@ -43,7 +43,8 @@ _SIGNATURES = {
     "smt_top16_grid": ([_I, _I, _I, _I, _I, _P, _P], _I),
     "smt_kmer_top16": ([_I, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P], _I),
     "smt_tile_offsets": ([_I, _P, _I, _P, _P, _LL, _P], _I),
-    "smt_tile_append": ([_I, _P, _P, _P, _I, _I, _P, _P], _I),
+    "smt_append_occupancy": ([_I, _P, _P], _I),
+    "smt_tile_append": ([_I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "smt_kmer_values": ([_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _P], _I),
 }
 

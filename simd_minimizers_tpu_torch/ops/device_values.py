@@ -4,8 +4,9 @@ PyTorch version, and the drivers that return NumPy arrays.
 Counterpart of `simd_minimizers_tpu/ops/device_values.py`
 (`values_limbs_jnp`, `kmer_values_u64`, `kmer_values_u128_limbs`), which
 the JAX package runs as plain XLA. The kernel is `csrc/values.cu` (see its
-header): one thread a position, the value assembled from the sequence as
-the sketch read it on the card, the 2-bit byte stream of
+header): two positions a thread (one at L = 4), each row stored whole, the
+value assembled from words of the sequence as the sketch read it on the
+card (positions in any order), the 2-bit byte stream of
 `convert.packed_words` or, with `byte_codes`, one 2-bit code a byte
 (`convert.code_bytes`). The JAX package's word stream is the little-endian
 u32 view of the same byte stream, so no repack is needed.

@@ -101,6 +101,8 @@ _ready_devices: set[int] = set()
 # per card: tile_offsets' ticket and finished-block counters and one
 # look-back word per block of the largest scan, zero between launches
 _scan_status: dict[int, torch.Tensor] = {}
+# per card: tile_append's persistent grid, (blocks, warps per block)
+_append_grids: dict[int, tuple[int, int]] = {}
 
 
 def min_passes(w: int) -> int:
@@ -198,7 +200,8 @@ def _check(err: int, what: str) -> None:
 def _library(device: torch.device):
     """The kernel library, set up once per card, before any CUDA-graph
     capture (TILE agreement, every minimizer_tiles and kmer_top16
-    instance's shared-memory limit, tile_offsets' zeroed status words)."""
+    instance's shared-memory limit, tile_offsets' zeroed status words,
+    tile_append's persistent grid)."""
     lib = _build.library()
     if device.index not in _ready_devices:
         if torch.cuda.is_current_stream_capturing():
@@ -210,6 +213,11 @@ def _library(device: torch.device):
         _check(lib.smt_top16_init(device.index), "smt_top16_init")
         _scan_status[device.index] = torch.zeros(2 + MAX_LAUNCH_CHARS // TILE // SCAN_BLOCK,
                                                  dtype=torch.int64, device=device)
+        per_sm, warps = ctypes.c_int(0), ctypes.c_int(0)
+        _check(lib.smt_append_occupancy(device.index, ctypes.byref(per_sm), ctypes.byref(warps)),
+               "smt_append_occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _append_grids[device.index] = (sms * max(per_sm.value, 1), warps.value)
         _ready_devices.add(device.index)
     return lib
 
@@ -254,6 +262,28 @@ def top16_grid(k: int, canonical: bool, *, text: bool = False, kind: str = "nt",
                               int(kind == "antilex"), ctypes.byref(grid), ctypes.byref(smem)),
            "smt_top16_grid")
     return grid.value, smem.value
+
+
+def append_grid(device: torch.device | str = "cuda") -> tuple[int, int]:
+    """(blocks, warps per block) of tile_append's persistent grid on the
+    card: its SMs x the blocks that fit an SM (the occupancy query). Each
+    warp copies one tile at a time, so a launch of at least blocks x warps
+    tiles starts the whole grid (`append_blocks`)."""
+    dev = require_cuda(device)
+    if dev.type != "cuda":
+        raise ValueError("the grid of a kernel is a property of a CUDA card")
+    dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    _library(dev)
+    return _append_grids[dev.index]
+
+
+def append_blocks(ntiles: int, blocks: int, warps: int) -> int:
+    """The blocks a tile_append launch over `ntiles` tiles starts on a card
+    whose persistent grid is `blocks` of `warps` warps: no more than one
+    warp a tile, and at least one block."""
+    if ntiles < 1 or blocks < 1 or warps < 1:
+        raise ValueError(f"a launch needs tiles, blocks and warps: {ntiles}, {blocks}, {warps}")
+    return min(blocks, -(-ntiles // warps))
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -464,6 +494,20 @@ def tile_offsets(counts: torch.Tensor) -> torch.Tensor:
     return offsets
 
 
+def _check_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor) -> int:
+    """tile_append's arguments, on any device; returns the planes."""
+    _require_int32(scratch, counts, offsets)
+    if (scratch.dim() not in (1, 2) or scratch.shape[-1] != counts.numel() * TILE
+            or offsets.numel() != counts.numel() + 1 or counts.dim() != 1 or offsets.dim() != 1):
+        raise ValueError("scratch, counts and offsets disagree on the tile count")
+    planes = scratch.shape[0] if scratch.dim() == 2 else 1
+    if planes not in (1, 2):
+        raise ValueError(f"scratch holds one plane or two, not {planes}")
+    if not (scratch.device == counts.device == offsets.device):
+        raise ValueError("scratch, counts and offsets must be on one device")
+    return planes
+
+
 def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tensor,
                 total: int | None) -> torch.Tensor:
     """Kernel 3: each tile's run of scratch at its offset: (total,) int32,
@@ -472,16 +516,16 @@ def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tens
     kernel reads the total from offsets, as a CUDA-graph capture needs: the
     result is a flat buffer of planes * ntiles * TILE int32 whose first
     planes * offsets[-1] values are the planes one after the other, the
-    rest undefined."""
-    _require_int32(scratch, counts, offsets)
-    planes = scratch.shape[0] if scratch.dim() == 2 else 1
+    rest undefined. On the card a persistent grid of warps (`append_grid`)
+    copies the runs, reading 16 bytes at a time (csrc/minimizers.cu);
+    scratch must start on 16 bytes there, as minimizer_tiles leaves it."""
+    planes = _check_append(scratch, counts, offsets)
     if _device_kind(scratch) == "cpu":
         if total is None:
             raise ValueError("the total is read on the card only: pass it on the CPU")
         return pipeline.tile_append_plain(scratch, counts, offsets, total, TILE)
-    if (scratch.dim() not in (1, 2) or scratch.shape[-1] != counts.numel() * TILE
-            or offsets.numel() != counts.numel() + 1):
-        raise ValueError("scratch, counts and offsets disagree on the tile count")
+    if scratch.data_ptr() % 16:
+        raise ValueError("scratch must start on 16 bytes (a tile's run is read 16 bytes at a time)")
     if total is None:
         out = torch.empty(planes * counts.numel() * TILE, dtype=torch.int32,
                           device=scratch.device)
@@ -489,11 +533,12 @@ def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tens
         out = torch.empty(*scratch.shape[:-1], total, dtype=torch.int32, device=scratch.device)
     if total == 0 or counts.numel() == 0:
         return out
-    lib = _library(scratch.device)
-    _check(lib.smt_tile_append(scratch.device.index, scratch.data_ptr(), counts.data_ptr(),
-                               offsets.data_ptr(), counts.numel(), planes, out.data_ptr(),
-                               torch.cuda.current_stream(scratch.device).cuda_stream),
-           "tile_append")
+    dev = scratch.device
+    lib = _library(dev)
+    blocks = append_blocks(counts.numel(), *_append_grids[dev.index])
+    _check(lib.smt_tile_append(dev.index, scratch.data_ptr(), counts.data_ptr(),
+                               offsets.data_ptr(), counts.numel(), planes, blocks, out.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream), "tile_append")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES["tile_append"] += 1
     return out

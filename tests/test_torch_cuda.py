@@ -187,6 +187,144 @@ def test_tile_offsets_in_a_graph(dev, ntiles):
     assert not fused._scan_status[counts.device.index].any()
 
 
+def _append_case(dev, ntiles, planes, counts_kind, seed):
+    """(scratch, counts, offsets, total) of `ntiles` tiles: random runs, and
+    counts all 0, all TILE, or random (so offsets are not multiples of 4)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if counts_kind == "zero":
+        counts = torch.zeros(ntiles, dtype=torch.int32, device=dev)
+    elif counts_kind == "full":
+        counts = torch.full((ntiles,), TILE, dtype=torch.int32, device=dev)
+    else:
+        counts = torch.randint(0, TILE + 1, (ntiles,), dtype=torch.int32, device=dev,
+                               generator=g)
+    scratch = torch.randint(0, 1 << 30, (planes, ntiles * TILE), dtype=torch.int32, device=dev,
+                            generator=g)
+    offsets = fused.tile_offsets(counts)
+    return (scratch if planes == 2 else scratch[0]), counts, offsets, int(offsets[-1])
+
+
+APPEND_NTILES = ["1", "2", "grid-1", "grid+1", "3grid+1", "131072"]
+
+
+def _append_ntiles(dev, name):
+    """A tile count: a number, or one about the size in tiles (warps) of
+    tile_append's persistent grid on this card."""
+    blocks, warps = fused.append_grid(dev)
+    grid = blocks * warps
+    return {"grid-1": grid - 1, "grid+1": grid + 1, "3grid+1": 3 * grid + 1}.get(name) or int(name)
+
+
+@pytest.mark.parametrize("name", APPEND_NTILES)
+@pytest.mark.parametrize("planes", [1, 2])
+def test_tile_append_persistent_grid(dev, name, planes):
+    """The persistent copy against its plain version over tile counts about
+    the grid's size (a warp's second and fourth round of tiles) and a
+    2^29-char span's 131,072 tiles, with random counts (offsets at every
+    int of a 16-byte unit); with counts of a full tile the output is the
+    scratch itself; with zero counts a launch copies nothing."""
+    ntiles = _append_ntiles(dev, name)
+    big = ntiles == 131_072
+    for counts_kind in ("random", "full", "zero"):
+        if big and planes == 2 and counts_kind == "full":
+            continue  # 4 GiB of output that the one-plane case already covers
+        scratch, counts, offsets, total = _append_case(dev, ntiles, planes, counts_kind, ntiles)
+        before = fused.LAUNCHES["tile_append"]
+        got = fused.tile_append(scratch, counts, offsets, total)
+        assert fused.LAUNCHES["tile_append"] == before + (total > 0)
+        assert got.shape == (*scratch.shape[:-1], total)
+        if counts_kind == "full":
+            assert torch.equal(got, scratch)
+        elif counts_kind == "random" and big:  # the plain version's gather of 2^29 ints is costly
+            for t in (0, 1, ntiles // 2, ntiles - 1):
+                c, o = int(counts[t]), int(offsets[t])
+                assert torch.equal(got[..., o:o + c], scratch[..., t * TILE:t * TILE + c])
+        else:
+            assert torch.equal(got, pipeline.tile_append_plain(scratch, counts, offsets, total,
+                                                               TILE))
+        if counts_kind == "zero":  # the card reads the total (0): nothing is written
+            flat = fused.tile_append(scratch, counts, offsets, None)
+            assert flat.numel() == planes * ntiles * TILE
+        del scratch, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_tile_append_unaligned_offsets(dev, planes):
+    """Runs of every length 0..40 and a few near TILE at offsets of every
+    residue mod 4: the realigned head and tail of each run."""
+    rng = np.random.default_rng(planes)
+    lengths = np.r_[np.arange(41), [TILE - 1, TILE, 127, 128, 129, 511, 512, 513]]
+    counts = torch.from_numpy(rng.permutation(np.tile(lengths, 4)).astype(np.int32)).to(dev)
+    ntiles = counts.numel()
+    scratch = torch.arange(planes * ntiles * TILE, dtype=torch.int32, device=dev).view(
+        planes, -1)
+    scratch = scratch if planes == 2 else scratch[0]
+    offsets = fused.tile_offsets(counts)
+    total = int(offsets[-1])
+    assert len({int(o) % 4 for o in offsets[:-1]}) == 4
+    assert torch.equal(fused.tile_append(scratch, counts, offsets, total),
+                       pipeline.tile_append_plain(scratch, counts, offsets, total, TILE))
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+def test_tile_append_total_read_in_a_graph(dev, planes):
+    """total=None captured in a CUDA graph (the grid fixed at capture) and
+    replayed beside eager calls on new counts and runs of the same tile
+    count: each replay's first planes * total ints equal the eager call's
+    planes, and nothing past them is written."""
+    ntiles = _append_ntiles(dev, "grid+1")
+    scratch, counts, offsets, _ = _append_case(dev, ntiles, planes, "random", 7)
+    fused.tile_append(scratch, counts, offsets, None)  # set-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused.tile_append(scratch, counts, offsets, None)
+    sentinel = 0x5A5A5A5A
+    for seed in range(4):
+        s2, c2, o2, total = _append_case(dev, ntiles, planes, ("random", "full", "zero")[seed % 3],
+                                         100 + seed)
+        scratch.copy_(s2)
+        counts.copy_(c2)
+        offsets.copy_(o2)
+        out.fill_(sentinel)
+        graph.replay()
+        eager = fused.tile_append(scratch, counts, offsets, total)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:planes * total].view(*scratch.shape[:-1], total), eager)
+        assert bool((out[planes * total:] == sentinel).all())
+
+
+def test_tile_append_launch_failure_raises(dev, monkeypatch):
+    """A failed launch raises; nothing falls back to the plain version, and
+    the launch is not counted."""
+    from simd_minimizers_tpu_torch.ops import _build
+
+    scratch, counts, offsets, total = _append_case(dev, 3, 1, "random", 3)
+    fused._library(scratch.device)  # the card's set-up, before the library fails
+
+    class Failing:
+        @staticmethod
+        def smt_tile_append(*args):
+            return 1
+
+    monkeypatch.setattr(_build, "library", lambda: Failing)
+    before = fused.LAUNCHES["tile_append"]
+    with pytest.raises(RuntimeError, match="tile_append failed"):
+        fused.tile_append(scratch, counts, offsets, total)
+    assert fused.LAUNCHES["tile_append"] == before
+
+
+def test_tile_append_grid_from_the_card(dev):
+    """The persistent grid is the SMs times the blocks an SM holds, and a
+    launch starts no more blocks than its tiles need."""
+    blocks, warps = fused.append_grid(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert warps == 8 and blocks % sms == 0 and blocks >= sms
+    assert fused.append_blocks(1, blocks, warps) == 1
+    assert fused.append_blocks(131_072, blocks, warps) == blocks
+
+
 @pytest.mark.parametrize("canonical", [False, True])
 def test_widest_geometry(dev, canonical):
     # the largest w the gate admits: TILE + w = 2^16, the 16-bit column key
@@ -1418,6 +1556,71 @@ def test_kmer_values_past_2_31(dev):
                 vals = device_values.kmer_values_u64(packed, top, k, canonical)
                 np.testing.assert_array_equal(vals, want)
     del codes, packed
+    torch.cuda.empty_cache()
+
+
+VALUE_EDGE_KS = [1, 15, 16, 17, 32, 33, 48, 49, 64]
+
+
+@pytest.mark.parametrize("k", VALUE_EDGE_KS)
+@pytest.mark.parametrize("canonical", [False, True])
+def test_kmer_values_positions_in_any_order(dev, k, canonical):
+    """The kernel against its plain version on positions in no order: a
+    random permutation, duplicates, positions spread over 8 Mbp (a block's
+    positions megabytes apart), canonical minimizer positions with steps
+    back (neighbours swapped), the last k-mer of the buffer, m of 1,
+    3, 255, 256, 257 and 1,027, and a positions view off 16 bytes; on the
+    2-bit byte stream and code bytes, each at an aligned and an unaligned
+    address."""
+    from simd_minimizers_tpu_torch.ops import device_values
+
+    rng = np.random.default_rng(1000 + 2 * k + canonical)
+    n = 1 << 23
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    packed = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
+    cbytes = convert.code_bytes(codes, dev)
+    inputs = [(packed, False), (torch.cat([packed.new_zeros(3), packed])[3:], False),
+              (cbytes, True), (torch.cat([cbytes.new_zeros(1), cbytes])[1:], True)]
+    some = rng.integers(0, n - k + 1, 3000)
+    canon = api.canonical_minimizers(21, 11).run(PackedSeqVec.from_codes(codes[:1_000_000]),
+                                                 device=dev).positions.astype(np.int64)
+    flip = np.arange(0, canon.size - 1, 37)  # neighbours swapped: steps back by at most w
+    canon[flip], canon[flip + 1] = canon[flip + 1], canon[flip].copy()
+    assert (np.diff(canon) < 0).any()
+    cases = {
+        "permutation": rng.permutation(np.sort(some)),
+        "duplicates": rng.choice(some[:40], 5000),
+        "spread": rng.integers(0, n - k + 1, 20_000),
+        "canonical": canon,
+        "last k-mer": np.r_[[n - k] * 5, some[:2000], n - k],
+        **{f"m={m}": rng.integers(n - k - 5000, n - k + 1, m) for m in (1, 3, 255, 256, 257, 1027)},
+    }
+    for name, pos in cases.items():
+        pos_t = torch.from_numpy(pos.astype(np.uint32).view(np.int32)).to(dev)
+        views = [pos_t, torch.cat([pos_t.new_zeros(1), pos_t])[1:]]  # the second off 16 bytes
+        for chars, byte_codes in inputs:
+            for p in views:
+                got = device_values.kmer_values_limbs(chars, p, k, canonical, byte_codes)
+                want = device_values.kmer_values_limbs_plain(chars, p, k, canonical, byte_codes)
+                assert torch.equal(got, want), (name, byte_codes, chars.data_ptr() % 4)
+
+
+def test_kmer_values_many_rows(dev):
+    """m past 2^31 / 4 positions at L = 4 (more than 2^31 limbs): the first
+    and last rows against the plain version."""
+    from simd_minimizers_tpu_torch.ops import device_values
+
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(64)
+    codes = torch.randint(0, 4, (n,), dtype=torch.uint8, device=dev, generator=g)
+    m = (1 << 29) + 1027
+    pos = torch.randint(0, n - 63, (m,), dtype=torch.int32, device=dev, generator=g)
+    got = device_values.kmer_values_limbs(codes, pos, 64, True, byte_codes=True)
+    assert got.shape == (m, 4)
+    for part in (slice(0, 5000), slice(m - 5000, m), slice((1 << 29) - 7, (1 << 29) + 9)):
+        assert torch.equal(got[part], device_values.kmer_values_limbs_plain(
+            codes, pos[part], 64, True, byte_codes=True)), part
+    del got, pos
     torch.cuda.empty_cache()
 
 

@@ -77,6 +77,72 @@ def test_each_kernel_cpu_vs_oracle(k, w, canonical, nw):
     assert fused.LAUNCHES == before
 
 
+@pytest.mark.parametrize("case", ["full", "zero", "mixed"])
+def test_tile_append_plain_two_planes_vs_oracle(case):
+    """tile_append on CPU tensors (its plain version) with the two planes of
+    super-k-mers (positions, window indices): every tile full (w = 1 keeps
+    every window), every tile empty (every char ambiguous) and the counts of
+    w = 11, against a NumPy gather of the tile runs and the JAX package's
+    oracle's kept windows."""
+    tile, k = fused.TILE, 5
+    w = 1 if case == "full" else 11
+    nw = 2 * tile if case == "full" else 2 * tile + 37
+    codes = np.random.default_rng(len(case)).integers(0, 4, nw + k + w - 2, dtype=np.uint8)
+    amb = np.ones(codes.size, bool) if case == "zero" else None
+    h = NtHasher(k)
+    sel = oracle.selected_stream(codes, k, w, h, ambiguous=amb)
+    keep = np.r_[True, sel[1:] != sel[:-1]] & (sel != oracle.SKIPPED)
+    want = np.stack([sel[keep], np.flatnonzero(keep)]).astype(np.uint32)
+
+    words = torch.from_numpy(pack_2bit(codes))
+    key, table = convert.hasher_tensors(convert.hasher_from(h), "cpu")
+    plane = None if amb is None else convert.ambiguity_plane(amb, codes.size, "cpu")
+    scratch, counts = fused.minimizer_tiles(words, codes.size, k, w, table, key[2], False,
+                                            pipeline.MODE_SUPERKMERS, plane)
+    assert scratch.shape == (2, counts.numel() * tile)
+    if case == "full":
+        assert (counts == tile).all()
+    if case == "zero":
+        assert not counts.any()
+    offsets = fused.tile_offsets(counts)
+    total = int(offsets[-1])
+    runs = scratch.view(2, -1, tile).numpy()
+    gather = np.stack([np.concatenate([runs[p, t, :c] for t, c in enumerate(counts.tolist())])
+                       for p in range(2)]).astype(np.int32)
+    got = fused.tile_append(scratch, counts, offsets, total)
+    assert got.shape == (2, total) == want.shape
+    np.testing.assert_array_equal(got.numpy(), gather)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_tile_append_grid_and_arguments():
+    """The blocks of a tile_append launch (one warp a tile, at most the
+    persistent grid, at least one block), the grid refused off the card,
+    and arguments that disagree refused on the CPU too."""
+    assert fused.append_blocks(1, 792, 8) == 1
+    assert fused.append_blocks(8, 792, 8) == 1 and fused.append_blocks(9, 792, 8) == 2
+    assert fused.append_blocks(792 * 8 - 1, 792, 8) == 792
+    assert fused.append_blocks(24_415, 792, 8) == 792 == fused.append_blocks(131_072, 792, 8)
+    for bad in ((0, 792, 8), (5, 0, 8), (5, 792, 0)):
+        with pytest.raises(ValueError):
+            fused.append_blocks(*bad)
+    with pytest.raises(ValueError, match="CUDA card"):
+        fused.append_grid("cpu")
+    tile = fused.TILE
+    counts = torch.tensor([3, 0], dtype=torch.int32)
+    offsets = torch.tensor([0, 3, 3], dtype=torch.int32)
+    scratch = torch.arange(2 * tile, dtype=torch.int32)
+    assert fused.tile_append(scratch, counts, offsets, 3).tolist() == [0, 1, 2]
+    assert fused.tile_append(scratch.view(1, -1), counts, offsets, 3).tolist() == [[0, 1, 2]]
+    for s, c, o in ((scratch[:tile], counts, offsets), (scratch, counts, offsets[:2]),
+                    (scratch.repeat(3).view(3, -1), counts, offsets),
+                    (scratch, counts.view(2, 1), offsets)):
+        with pytest.raises(ValueError):
+            fused.tile_append(s, c, o, 3)
+    with pytest.raises(ValueError, match="int32"):
+        fused.tile_append(scratch.long(), counts, offsets, 3)
+
+
 @pytest.mark.parametrize("n", [0, 3, 30])
 def test_short_input_is_empty(n):
     before = dict(fused.LAUNCHES)

@@ -6,7 +6,8 @@
   byte stream and on code bytes;
 - the port's host paths (the native extractor for 2-bit u64, NumPy for
   u128 and text) against the JAX package's `ops/values.py`;
-- boundary positions (0 and n - k), m = 0, unaligned `PackedSeq` slices;
+- boundary positions (0 and n - k), m = 0, unaligned `PackedSeq` slices,
+  unsorted and duplicated positions;
 - `Output`'s routing: host values after a CPU run or `run_scalar`, the
   card's drivers after a CUDA run (the card replaced by the CPU here, so
   the plain version runs), and the JAX package's assertions.
@@ -122,6 +123,31 @@ def test_text_values_vs_jax(k, canonical):
              else jvalues.kmer_values_u128_limbs)
     for g, w in zip(u128(text, pos, k, 8), ju128(text, pos, k, 8), strict=True):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [15, 21, 33, 64])  # L = 1, 2, 3, 4
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("byte_codes", [False, True])
+def test_plain_limbs_positions_in_any_order_vs_jax(k, canonical, byte_codes):
+    """The plain version on unsorted positions with duplicates (a run of
+    one position, repeats far apart, both ends, past the buffer) equals
+    values_limbs_jnp row by row, whatever the order."""
+    rng = np.random.default_rng(7 * k + 2 * canonical + byte_codes)
+    codes = _codes(k + 50)
+    some = rng.integers(0, N - k + 1, 300)
+    pos = np.concatenate([some, some[:60], np.repeat(some[60:63], 5), [N - k] * 3, [0, 0],
+                          [N - k + 1, N - 1]]).astype(np.uint32)
+    rng.shuffle(pos)
+    assert (np.diff(pos.astype(np.int64)) < 0).any() and np.unique(pos).size < pos.size
+    got = device_values.kmer_values_limbs_plain(_chars(codes, byte_codes), _pos_tensor(pos), k,
+                                                canonical, byte_codes)
+    want = np.asarray(jdv.values_limbs_jnp(jdv.pack_words_np(codes), pos, k, canonical))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    order = np.argsort(pos, kind="stable")  # the same rows as the sorted positions'
+    np.testing.assert_array_equal(
+        device_values.kmer_values_limbs_plain(_chars(codes, byte_codes), _pos_tensor(pos[order]),
+                                              k, canonical, byte_codes).numpy().view(np.uint32),
+        want[order])
 
 
 @pytest.mark.parametrize("k", [5, 16, 21, 32, 33, 64])
