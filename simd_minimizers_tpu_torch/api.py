@@ -30,7 +30,7 @@ from .hashers import KmerHasher, NtHasher
 from .ops import backend, device_values, fused, oracle, pipeline, values
 from .seq.packed import (_ASCII_TO_CODE, _IS_ACGT, AsciiSeq, GenericSeq, PackedNSeqVec,
                          PackedSeq, as_seq)
-from .utils.profiling import stage
+from .utils.profiling import span, stage
 
 _SYNCMER_NONE, _SYNCMER_CLOSED, _SYNCMER_OPEN = 0, 1, 2
 
@@ -222,22 +222,23 @@ class Builder:
         Reads shorter than l = k + w - 1 have no windows and are dropped
         from the output entirely (their ids never appear).
         """
-        # the reference cannot express it: rejected as the JAX builder does
-        pipeline.assert_no_superkmer_ambiguity(self._mode, ambiguous is not None)
-        with stage("fold reads to codes"):
-            if isinstance(reads, np.ndarray) and reads.ndim == 2:
-                # as_seq row by row, vectorized: ACGT rows are DNA, others text
-                rows = np.asarray(reads, dtype=np.uint8)
-                acgt = _IS_ACGT[rows].all(axis=1)
-                codes = np.where(acgt[:, None], _ASCII_TO_CODE[rows], rows)
-                dna = bool(acgt.all())
-            else:
-                seqs = [as_seq(r) for r in reads]
-                codes = [s.codes() for s in seqs]
-                # the seq types decide DNA vs general text exactly: no O(n) probe
-                dna = not any(isinstance(s, GenericSeq) for s in seqs)
-        return backend.sketch_batch(codes, self.k, self.w, self._resolved_hasher(), self._mode,
-                                    ambiguous, dna=dna, device=device)
+        with span("run_batch"):
+            # the reference cannot express it: rejected as the JAX builder does
+            pipeline.assert_no_superkmer_ambiguity(self._mode, ambiguous is not None)
+            with stage("fold reads to codes"):
+                if isinstance(reads, np.ndarray) and reads.ndim == 2:
+                    # as_seq row by row, vectorized: ACGT rows are DNA, others text
+                    rows = np.asarray(reads, dtype=np.uint8)
+                    acgt = _IS_ACGT[rows].all(axis=1)
+                    codes = np.where(acgt[:, None], _ASCII_TO_CODE[rows], rows)
+                    dna = bool(acgt.all())
+                else:
+                    seqs = [as_seq(r) for r in reads]
+                    codes = [s.codes() for s in seqs]
+                    # the seq types decide DNA vs general text exactly: no O(n) probe
+                    dna = not any(isinstance(s, GenericSeq) for s in seqs)
+            return backend.sketch_batch(codes, self.k, self.w, self._resolved_hasher(), self._mode,
+                                        ambiguous, dna=dna, device=device)
 
 
 def minimizers(k: int, w: int) -> Builder:

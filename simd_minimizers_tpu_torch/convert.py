@@ -19,7 +19,8 @@ import torch
 from .hashers import AntiLexHasher, KmerHasher, MulHasher, NtHasher
 from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, PackedSeqVec, pack_2bit
 from .utils.device import require_cuda
-from .utils.profiling import stage
+from .utils import profiling
+from .utils.profiling import count_bytes, count_sync, stage
 
 _HASHERS = {cls.kind: cls for cls in (NtHasher, MulHasher, AntiLexHasher)}
 TABLE_ENTRIES = {False: 4, True: 256}  # per-char table entries: 2-bit codes, text bytes
@@ -82,10 +83,20 @@ def hasher_tensors(hasher: KmerHasher, device: torch.device | str, text: bool = 
     """(key, tables): key = (kind, canonical, rot_offset); tables =
     `char_tables` as an int64 (2, nchars) tensor on `device`, or None."""
     key = (hasher.kind, hasher.canonical, getattr(hasher, "rot_offset", 0))
-    tables = char_tables(hasher, text)
-    if tables is None:
-        return key, None
-    return key, torch.from_numpy(tables.astype(np.int64)).to(require_cuda(device))
+    with profiling.span("hasher tables"):
+        tables = char_tables(hasher, text)
+        if tables is None:
+            return key, None
+        return key, upload(tables.astype(np.int64), require_cuda(device), "tables upload")
+
+
+def upload(data: np.ndarray, device: torch.device, site: str) -> torch.Tensor:
+    """`data` as a tensor on `device`, counted at `site`: on a card a blocking
+    copy from pageable memory, which PyTorch ends by waiting for the stream;
+    on the CPU the array itself."""
+    count_bytes("h2d pageable", data.nbytes)
+    count_sync(site)
+    return torch.from_numpy(data).to(device)
 
 
 def packed_words(seq, device: torch.device | str) -> torch.Tensor:
@@ -100,7 +111,8 @@ def packed_words(seq, device: torch.device | str) -> torch.Tensor:
         data, _ = seq.packed_with_offset()
     else:
         data = pack_2bit(seq.codes())
-    return torch.from_numpy(np.ascontiguousarray(data)).to(device)
+    with profiling.span("upload"):
+        return upload(np.ascontiguousarray(data), device, "upload")
 
 
 def text_bytes(seq: GenericSeq, device: torch.device | str) -> torch.Tensor:
@@ -119,7 +131,7 @@ def code_bytes(codes, device: torch.device | str) -> torch.Tensor:
     with stage("upload"), warnings.catch_warnings():
         # bytes input is read-only; no path of the port writes to it
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        return torch.from_numpy(data).to(device)
+        return upload(data, device, "upload")
 
 
 def is_dna(codes: np.ndarray) -> bool:
@@ -153,7 +165,7 @@ def ambiguity_plane(ambiguous, n: int, device: torch.device | str) -> torch.Tens
     with stage("mask packing"):
         plane = np.packbits(mask, bitorder="little")
     with stage("upload"):
-        return torch.from_numpy(plane).to(device)
+        return upload(plane, device, "upload")
 
 
 def padding_plane(lens, stride: int, device: torch.device | str,
@@ -165,7 +177,7 @@ def padding_plane(lens, stride: int, device: torch.device | str,
     `device`) if given. The plane covers len(lens) * stride chars, rounded
     up to whole bytes with flagged chars."""
     device = require_cuda(device)
-    lens_t = torch.as_tensor(np.asarray(lens, np.int64), device=device)
+    lens_t = upload(np.asarray(lens, np.int64), device, "padding plane")
     flags = torch.arange(stride, device=device) >= lens_t[:, None]
     flags = flags.reshape(-1)
     if ambiguous is not None:
@@ -173,7 +185,7 @@ def padding_plane(lens, stride: int, device: torch.device | str,
     pad = -flags.numel() % 8
     if pad:
         flags = torch.cat([flags, flags.new_ones(pad)])
-    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8, device=device)
+    weights = upload(np.array([1 << b for b in range(8)], np.uint8), device, "padding plane")
     return (flags.view(-1, 8).to(torch.uint8) * weights).sum(1, dtype=torch.uint8)
 
 
@@ -189,11 +201,12 @@ class Download:
     pinned buffers, with no host copy; PyTorch's pinned-memory allocator
     takes a buffer back when its last array is dropped and hands it out
     again only after the copy's event has fired. A CPU tensor needs no
-    copy."""
+    copy; its bytes and its wait are counted as a card's would be."""
 
     def __init__(self, result, stream: torch.cuda.Stream | None = None):
         self.tuple = isinstance(result, tuple)
         tensors = result if self.tuple else (result,)
+        count_bytes("d2h pinned", sum(t.numel() * t.element_size() for t in tensors))
         self.event = None
         if tensors[0].device.type != "cuda":
             self.host = tensors
@@ -210,8 +223,10 @@ class Download:
             self.event.record(stream)
 
     def result(self):
-        if self.event is not None:
-            self.event.synchronize()
+        with profiling.span("download wait"):
+            count_sync("download wait")
+            if self.event is not None:
+                self.event.synchronize()
         out = tuple(h.numpy().view(np.uint32) for h in self.host)
         self.host = None
         return out if self.tuple else out[0]

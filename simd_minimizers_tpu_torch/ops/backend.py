@@ -16,7 +16,7 @@ import torch
 
 from .. import convert
 from ..hashers import KmerHasher
-from ..utils.profiling import stage
+from ..utils.profiling import span, stage
 from . import batch, chunked, fused, pipeline
 
 # sequences of this many chars or more stream through spans (fused.sketch_long)
@@ -62,14 +62,16 @@ def sketch(chars: torch.Tensor, n: int, k: int, w: int, hasher: KmerHasher,
     2^29-char spans; on a CPU tensor, sequences of more than
     chunked.PIPELINE_CHUNK_WINDOWS windows stream in spans of that many
     windows (`chunked.sketch`), which bounds the plain version's memory."""
-    _check_parameters(k, w, hasher, mode)
-    if chars.device.type == "cpu" and n - (k + w - 1) + 1 > chunked.PIPELINE_CHUNK_WINDOWS:
-        return chunked.sketch(chars, n, k, w, hasher, mode, ambiguous, text=text)
-    if n >= LONG_SEQUENCE_CHARS:
-        return fused.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
-    (kind, canonical, rot_offset), tables = convert.hasher_tensors(hasher, chars.device, text)
-    return fused.fused_sketch(chars, n, k, w, tables, rot_offset, canonical, mode, ambiguous,
-                              text=text, kind=kind)
+    with span("sketch"):
+        _check_parameters(k, w, hasher, mode)
+        if chars.device.type == "cpu" and n - (k + w - 1) + 1 > chunked.PIPELINE_CHUNK_WINDOWS:
+            return chunked.sketch(chars, n, k, w, hasher, mode, ambiguous, text=text)
+        if n >= LONG_SEQUENCE_CHARS:
+            return fused.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
+        (kind, canonical, rot_offset), tables = convert.hasher_tensors(hasher, chars.device, text)
+        with span("kernels"):
+            return fused.fused_sketch(chars, n, k, w, tables, rot_offset, canonical, mode,
+                                      ambiguous, text=text, kind=kind)
 
 
 def sketch_records(records, k: int, w: int, hasher: KmerHasher,
@@ -90,38 +92,40 @@ def sketch_records(records, k: int, w: int, hasher: KmerHasher,
     SMTPU_RECORDS_BATCH_MAX_BP and SMTPU_RECORDS_WAVE_BYTES, with their
     defaults.
     """
-    l = k + w - 1
-    amb = fused.record_masks(records, ambiguous, mode)
-    _check_parameters(k, w, hasher, mode)
-    span_kw = {"dna": dna, "device": device, "span_chars": fused.SPAN_CHARS,
-               "wave_bytes": wave_bytes}
-    small = [i for i, r in enumerate(records) if l <= len(r) <= batch_max_bp]
-    if len(small) < RECORDS_BATCH_MIN_COUNT:
-        return fused.sketch_records_checked(records, k, w, hasher, mode, amb, **span_kw)
-    out = [None] * len(records)
-    small_set = set(small)
-    big = [i for i in range(len(records)) if i not in small_set]
-    if big:
-        for i, res in zip(big, fused.sketch_records_checked(
-                [records[i] for i in big], k, w, hasher, mode, [amb[i] for i in big], **span_kw)):
-            out[i] = res
-    sub_amb = None
-    if any(amb[i] is not None for i in small):
-        # the batch engine wants a dense list (no None entries)
-        sub_amb = [amb[i] if amb[i] is not None else np.zeros(len(records[i]), np.uint8)
-                   for i in small]
-    rid, *planes = batch.sketch_batch([records[i] for i in small], k, w, hasher, mode, sub_amb,
-                                      dna=dna, device=device)
-    with stage("split by record"):
-        bounds = np.cumsum(np.bincount(rid, minlength=len(small)))[:-1]
-        splits = [np.split(p, bounds) for p in planes]
-        for j, i in enumerate(small):
-            out[i] = tuple(s[j] for s in splits) if len(splits) > 1 else splits[0][j]
-    empty = np.zeros(0, np.uint32)
-    for i in range(len(records)):
-        if out[i] is None:  # records shorter than one window
-            out[i] = (empty, empty) if mode == pipeline.MODE_SUPERKMERS else empty
-    return out
+    with span("sketch_records"):
+        l = k + w - 1
+        amb = fused.record_masks(records, ambiguous, mode)
+        _check_parameters(k, w, hasher, mode)
+        span_kw = {"dna": dna, "device": device, "span_chars": fused.SPAN_CHARS,
+                   "wave_bytes": wave_bytes}
+        small = [i for i, r in enumerate(records) if l <= len(r) <= batch_max_bp]
+        if len(small) < RECORDS_BATCH_MIN_COUNT:
+            return fused.sketch_records_checked(records, k, w, hasher, mode, amb, **span_kw)
+        out = [None] * len(records)
+        small_set = set(small)
+        big = [i for i in range(len(records)) if i not in small_set]
+        if big:
+            for i, res in zip(big, fused.sketch_records_checked(
+                    [records[i] for i in big], k, w, hasher, mode, [amb[i] for i in big],
+                    **span_kw)):
+                out[i] = res
+        sub_amb = None
+        if any(amb[i] is not None for i in small):
+            # the batch engine wants a dense list (no None entries)
+            sub_amb = [amb[i] if amb[i] is not None else np.zeros(len(records[i]), np.uint8)
+                       for i in small]
+        rid, *planes = batch.sketch_batch([records[i] for i in small], k, w, hasher, mode, sub_amb,
+                                          dna=dna, device=device)
+        with stage("split by record"):
+            bounds = np.cumsum(np.bincount(rid, minlength=len(small)))[:-1]
+            splits = [np.split(p, bounds) for p in planes]
+            for j, i in enumerate(small):
+                out[i] = tuple(s[j] for s in splits) if len(splits) > 1 else splits[0][j]
+        empty = np.zeros(0, np.uint32)
+        for i in range(len(records)):
+            if out[i] is None:  # records shorter than one window
+                out[i] = (empty, empty) if mode == pipeline.MODE_SUPERKMERS else empty
+        return out
 
 
 def sketch_batch(reads, k: int, w: int, hasher: KmerHasher,

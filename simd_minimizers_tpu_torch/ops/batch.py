@@ -22,7 +22,7 @@ import torch
 
 from .. import convert
 from ..utils.device import require_cuda
-from ..utils.profiling import stage
+from ..utils.profiling import span, stage
 from . import fused, pipeline
 
 # max chars per launch (the kernel takes fewer than 2^31)
@@ -69,20 +69,22 @@ def launches(reads, ambiguous, l: int, device: torch.device):
     list of uint8 arrays or a (B, L) matrix; `ambiguous` a list of masks or
     None."""
     matrix = reads if isinstance(reads, np.ndarray) else None
-    lens = (np.full(len(reads), reads.shape[1], np.int64) if matrix is not None
-            else np.fromiter((len(rd) for rd in reads), np.int64, len(reads)))
-    uniq, inverse = np.unique(lens, return_inverse=True)
-    # eligible reads (len >= l) by stride bucket; stride > len so at least
-    # one ambiguous padding char separates consecutive reads
-    strides = np.asarray([_stride_bucket(int(x) + 1) if x >= l else 0 for x in uniq],
-                         np.int64)[inverse]
+    with span("stride buckets"):
+        lens = (np.full(len(reads), reads.shape[1], np.int64) if matrix is not None
+                else np.fromiter((len(rd) for rd in reads), np.int64, len(reads)))
+        uniq, inverse = np.unique(lens, return_inverse=True)
+        # eligible reads (len >= l) by stride bucket; stride > len so at
+        # least one ambiguous padding char separates consecutive reads
+        strides = np.asarray([_stride_bucket(int(x) + 1) if x >= l else 0 for x in uniq],
+                             np.int64)[inverse]
     for stride in sorted(set(strides.tolist()) - {0}):
         idxs = np.flatnonzero(strides == stride)
         per_launch = max(MAX_LAUNCH_CHARS // stride, 1)
         for s0 in range(0, len(idxs), per_launch):
             sub = idxs[s0 : s0 + per_launch]
-            sub_reads = matrix[sub] if matrix is not None else [reads[i] for i in sub]
-            sub_amb = [ambiguous[i] for i in sub] if ambiguous is not None else None
+            with span("stride buckets"):
+                sub_reads = matrix[sub] if matrix is not None else [reads[i] for i in sub]
+                sub_amb = [ambiguous[i] for i in sub] if ambiguous is not None else None
             with stage("slot fill"):
                 codes, amb = _fill_slots(sub_reads, sub_amb, stride)
             with stage("upload and padding plane"):
@@ -118,15 +120,16 @@ def sketch_batch(reads, k: int, w: int, hasher, mode: str = pipeline.MODE_MINIMI
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     device = require_cuda(device)
-    if isinstance(reads, np.ndarray) and reads.ndim == 2:
-        reads = np.asarray(reads, dtype=np.uint8)
-    else:
-        reads = [np.asarray(r, dtype=np.uint8).ravel() for r in reads]
-    if ambiguous is not None:
-        ambiguous = [np.asarray(a, dtype=np.uint8).ravel() for a in ambiguous]
-    if dna is None:
-        dna = convert.is_dna(reads) if isinstance(reads, np.ndarray) else all(
-            convert.is_dna(rd) for rd in reads)
+    with span("record probe"):
+        if isinstance(reads, np.ndarray) and reads.ndim == 2:
+            reads = np.asarray(reads, dtype=np.uint8)
+        else:
+            reads = [np.asarray(r, dtype=np.uint8).ravel() for r in reads]
+        if ambiguous is not None:
+            ambiguous = [np.asarray(a, dtype=np.uint8).ravel() for a in ambiguous]
+        if dna is None:
+            dna = convert.is_dna(reads) if isinstance(reads, np.ndarray) else all(
+                convert.is_dna(rd) for rd in reads)
     text = not dna
     (kind, canonical, rot), tables = convert.hasher_tensors(hasher, device, text)
     run = fused.fused_sketch if backend == "fused" else pipeline.run_pipeline
@@ -139,7 +142,7 @@ def sketch_batch(reads, k: int, w: int, hasher, mode: str = pipeline.MODE_MINIMI
         with stage("read attribution and order"):
             out, idx = res if superkmers else (res, None)
             slot = (idx if superkmers else out).long() // stride
-            part = [torch.as_tensor(sub, device=device)[slot], out.long() - slot * stride]
+            part = [convert.upload(sub, device, "read ids")[slot], out.long() - slot * stride]
             if superkmers:
                 part.append(idx.long() - slot * stride)
             parts.append(part)

@@ -31,6 +31,7 @@ import torch
 from .. import convert
 from ..hashers import KmerHasher
 from ..utils.device import require_cuda
+from ..utils.profiling import count_bytes, count_sync, recording, span
 from . import fused, pipeline
 
 RB = 8  # rows of C windows per block in the JAX program's geometry (G = 1)
@@ -84,6 +85,7 @@ class ShortSeqSketcher:
             self._offsets = fused.tile_offsets(counts)
             self._out = fused.tile_append(scratch, counts, self._offsets, None)
         torch.cuda.current_stream(dev).wait_stream(stream)
+        self._out_bytes = 4 + 4 * self._out.numel()  # the total and the planes, each call
         large_w = fused.sub_tile(self.k, self.w, self._args[4], self.mode,
                                  kind=self._kw["kind"]) != 0
         self._launched = (*(("kmer_top16",) if large_w else ()),
@@ -104,26 +106,47 @@ class ShortSeqSketcher:
         return n
 
     # -- async pipeline -----------------------------------------------------
+    # With a profiler recording, each step of a call is a span; without one
+    # a call checks for it once in each of launch, harvest and sketch.
     def launch(self, codes_np: np.ndarray, offset: int = 0):
         """Enqueue one sketch of 2-bit codes; returns handles (no sync), or
         None below one window."""
         n = self._check(codes_np)
         if n < self._l:
             return None
+        if not recording():
+            return self._enqueue(self._stage_in(codes_np, n, offset), n, offset)
+        with span("short stage in"):
+            staged = self._stage_in(codes_np, n, offset)
+        with span("short launch"):
+            return self._enqueue(staged, n, offset)
+
+    def _stage_in(self, codes_np, n, offset):
+        """The codes where the launch reads them: on the CPU a tensor; on a
+        card the length, offset bits and codes in one pinned buffer, copied
+        in (the buffer is returned so that it lives until the launch)."""
         if self._graph is None:  # CPU: the plain versions, no graph
-            chars = torch.from_numpy(np.ascontiguousarray(codes_np, dtype=np.uint8))
-            return fused.fused_sketch(chars, n, *self._args, offset=offset, **self._kw)
-        # length, offset bits and codes in one pinned buffer, one copy in
+            return torch.from_numpy(np.ascontiguousarray(codes_np, dtype=np.uint8))
         host = torch.empty(8 + n, dtype=torch.uint8, pin_memory=True)
         buf = host.numpy()
         buf[:8].view(np.int32)[:] = (n, np.uint32(offset).view(np.int32))
         buf[8:] = codes_np
         self._buf[:8 + n].copy_(host, non_blocking=True)
+        count_bytes("h2d pinned", 8 + n)
+        return host
+
+    def _enqueue(self, staged, n, offset):
+        """On the CPU the plain kernels on the staged codes; on a card one
+        replay, the total and the planes copied out into pinned buffers, and
+        the event that harvest waits for."""
+        if self._graph is None:
+            return fused.fused_sketch(staged, n, *self._args, offset=offset, **self._kw)
         self._replay()
         total = torch.empty(1, dtype=torch.int32, pin_memory=True)
         out = torch.empty(self._out.shape, dtype=torch.int32, pin_memory=True)
         total.copy_(self._offsets[-1:], non_blocking=True)
         out.copy_(self._out, non_blocking=True)
+        count_bytes("d2h pinned", self._out_bytes)
         event = torch.cuda.Event()
         event.record()
         return total, out, event
@@ -131,12 +154,27 @@ class ShortSeqSketcher:
     def harvest(self, handles):
         """One launch's result as np.uint32 (positions, window indices for
         syncmers, or both for super-k-mers): the only sync point."""
-        empty = np.zeros(0, np.uint32)
         if handles is None:
+            empty = np.zeros(0, np.uint32)
             return (empty, empty) if self.mode == pipeline.MODE_SUPERKMERS else empty
+        if not recording():
+            self._wait(handles)
+            return self._unpack(handles)
         if self._graph is not None:
-            total, out, event = handles
-            event.synchronize()
+            with span("short wait"):
+                self._wait(handles)
+        with span("short unpack"):
+            return self._unpack(handles)
+
+    def _wait(self, handles) -> None:
+        """On a card, the host waits for the launch's copies out."""
+        if self._graph is not None:
+            count_sync("short wait")
+            handles[2].synchronize()
+
+    def _unpack(self, handles):
+        if self._graph is not None:
+            total, out, _ = handles
             cnt = int(total[0])
             flat = out.numpy().view(np.uint32)
             planes = [flat[p * cnt:(p + 1) * cnt].copy() for p in range(self._planes)]
@@ -148,7 +186,14 @@ class ShortSeqSketcher:
     # -- one-shot -----------------------------------------------------------
     def sketch(self, codes_np: np.ndarray):
         """Upload, run and return the result of one short sequence."""
-        return self.harvest(self.launch(codes_np))
+        if not recording():
+            return self.harvest(self.launch(codes_np))
+        with span("short"):
+            handles = self.launch(codes_np)
+            out = self.harvest(handles)
+            with span("short release"):  # the pinned buffers and the event go back
+                del handles
+            return out
 
     def sketch_many(self, seqs):
         """Sketch a list of short sequences, launching i + 1 before

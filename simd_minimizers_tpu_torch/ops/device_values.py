@@ -145,7 +145,7 @@ def _host_words(chars: torch.Tensor, positions, k: int, canonical: bool,
     of u32 positions, uploaded."""
     if not isinstance(positions, torch.Tensor):
         pos = np.ascontiguousarray(positions, dtype=np.uint32).view(np.int32)
-        positions = torch.from_numpy(pos).to(chars.device)
+        positions = convert.upload(pos, chars.device, "positions upload")
     limbs = kmer_values_limbs(chars, positions, k, canonical, byte_codes)
     if limbs.shape[1] % 2:
         limbs = torch.nn.functional.pad(limbs, (0, 1))

@@ -50,7 +50,7 @@ import torch
 from .. import convert
 from ..parallel.multihost import concat, merge_adjacent_shards
 from ..utils.device import require_cuda
-from ..utils.profiling import stage
+from ..utils.profiling import count_bytes, count_sync, span, stage
 from . import _build, pipeline
 
 TILE = 4096  # windows per thread block; csrc/minimizers.cu TILE
@@ -561,8 +561,12 @@ def _fused_harvest(handles, mode: str, cnt: int | None = None):
     caller already holds it as `cnt` (a wave fetches all its totals in one
     copy). int32 tensor, or (positions, indices) for super-k-mers."""
     scratch, counts, offsets = handles
-    total = int(offsets[-1]) if cnt is None else cnt
-    out = tile_append(scratch, counts, offsets, total)
+    if cnt is None:
+        with span("totals readback"):
+            count_sync("totals readback")
+            count_bytes("d2h pageable", offsets.element_size())
+            cnt = int(offsets[-1])
+    out = tile_append(scratch, counts, offsets, cnt)
     return (out[0], out[1]) if mode == pipeline.MODE_SUPERKMERS else out
 
 
@@ -625,7 +629,9 @@ class _LaunchWave:
     def flush(self) -> None:
         if not self.wave:
             return
-        with stage("kernels"):
+        with stage("kernels"), span("totals readback"):
+            count_sync("wave totals")
+            count_bytes("d2h pageable", 4 * len(self.wave))
             totals = torch.stack([h[2][-1] for _, h in self.wave]).tolist()
         for (key, handles), cnt in zip(self.wave, totals):
             with stage("kernels"):
@@ -668,7 +674,13 @@ class _SeamChars:
     def __getitem__(self, sl: slice) -> np.ndarray:
         a, b = sl.start, sl.stop
         raw = self.buf[a // self.per:-(-b // self.per)]
-        raw = raw.cpu().numpy() if isinstance(raw, torch.Tensor) else np.asarray(raw, np.uint8)
+        if isinstance(raw, torch.Tensor):
+            with span("seam chars"):
+                count_sync("seam chars")
+                count_bytes("d2h pageable", raw.numel())
+                raw = raw.cpu().numpy()
+        else:
+            raw = np.asarray(raw, np.uint8)
         if self.per == 1:
             return raw if self.text else raw & 3
         bits = np.unpackbits(raw, bitorder="little")
@@ -788,12 +800,15 @@ def sketch_records_checked(records, k: int, w: int, hasher, mode: str, masks: li
     starts = [[] for _ in range(nrec)]
     texts = [False] * nrec
     for ri, rec in enumerate(records):
-        codes = np.asarray(rec, dtype=np.uint8)
-        n = codes.shape[0]
-        check_sequence_length(n)
+        with span("record probe"):
+            codes = np.asarray(rec, dtype=np.uint8)
+            n = codes.shape[0]
+            check_sequence_length(n)
+            if n >= l:
+                texts[ri] = not (dna if dna is not None else convert.is_dna(codes))
         if n < l:
             continue
-        text = texts[ri] = not (dna if dna is not None else convert.is_dna(codes))
+        text = texts[ri]
         if text not in tables_for:
             tables_for[text] = convert.hasher_tensors(hasher, device, text)
         (kind, canonical, rot), tables = tables_for[text]

@@ -30,9 +30,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import convert
 from ..hashers import KmerHasher
 from ..ops import oracle, pipeline
 from ..utils.bits import SKIPPED
+from ..utils.profiling import count_bytes, count_sync
 
 _MASK32 = 0xFFFF_FFFF
 
@@ -154,17 +156,21 @@ def _allgather_ragged_planes(planes: list[np.ndarray], nproc: int) -> list[list[
         raise AssertionError("planes must move in lockstep")
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend() == "nccl" else torch.device("cpu"))
-    mine = torch.tensor([size], dtype=torch.int64, device=dev)
+    mine = convert.upload(np.array([size], np.int64), dev, "gather upload")
     counts = [torch.empty_like(mine) for _ in range(nproc)]
     dist.all_gather(counts, mine)
+    count_bytes("d2h pageable", 8 * nproc)
+    count_sync("gather counts", nproc)
     counts = [int(c) for c in counts]
     cap = max(max(counts), 1)
     buf = np.full((len(planes), cap), 0xFFFFFFFF, np.uint32)
     for i, p in enumerate(planes):
         buf[i, :size] = p
-    mine = torch.from_numpy(buf.view(np.int32)).to(dev)  # u32 bits in int32
+    mine = convert.upload(buf.view(np.int32), dev, "gather upload")  # u32 bits in int32
     bufs = [torch.empty_like(mine) for _ in range(nproc)]
     dist.all_gather(bufs, mine)
+    count_bytes("d2h pageable", buf.nbytes * nproc)
+    count_sync("gather readback", nproc)
     bufs = [b.cpu().numpy().view(np.uint32) for b in bufs]
     return [[bufs[p][i, :counts[p]] for p in range(nproc)] for i in range(len(planes))]
 

@@ -1,19 +1,56 @@
 """Device timing with CUDA events, profiler traces, the steady-state time
-of an enqueued call, and the wall time of an entry point split into its
-host and device stages.
+of an enqueued call, the wall time of an entry point split into its host
+and device stages, and the port's spans and counters.
 
 `trace` and `timed_amortized` are the counterparts of the JAX package's
 `utils/profiling.py`: a torch.profiler trace in place of a jax.profiler
-one, and a synchronize of the card in place of a fetch of a scalar."""
+one, and a synchronize of the card in place of a fetch of a scalar.
+
+Spans: `span(name)` marks a step of the port as `smt.<name>` in the
+timeline of any torch.profiler session that is recording (`trace`, say),
+beside the card's kernels and copies and on the same clock; `stage(name)`
+is a span that an open `split_wall` also times. With no profiler recording
+and no `split_wall` open a span checks one flag and records nothing, and
+no span waits for the card. The recording profiler is the only switch.
+
+Counters, always on: `SYNCS[site]` counts the times the port blocks the
+host on the card at `site`, `BUS_BYTES[kind]` the bytes it moves between
+host and card, by direction and host memory ("h2d pageable", "h2d pinned",
+"d2h pinned", "d2h pageable"). A site counts whether it runs on a card or
+on the CPU, where nothing crosses a bus, so the CPU tests hold the counts of
+each route; where the CPU takes another route, it counts that route's (the
+short path's plain kernels count `totals readback` and pageable bytes, its
+graph on a card `short wait` and pinned ones). `PROFILED` holds what the
+calls made while a profiler recorded counted inside the port's spans, and
+the seconds in each span: only
+the benchmark's readers read it (ROADMAP A2c takes it out). Like
+`ops.fused.LAUNCHES` they take no lock: calls from several threads at once
+may lose a count."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
 
 import torch
 
+try:
+    from torch._C._profiler import _RecordFunctionFast as _Record  # ~1 us a span
+except ImportError:  # an older PyTorch: the public annotation, ~13 us a span
+    from torch.autograd.profiler import record_function as _Record
+
+SPAN_PREFIX = "smt."
+SYNCS: collections.Counter = collections.Counter()  # site -> host waits on the card
+BUS_BYTES: collections.Counter = collections.Counter()  # kind -> bytes moved
+# while a profiler recorded: "syncs" and "bus_bytes" as above, "span_s"
+# seconds by span name (without the prefix)
+PROFILED = {"syncs": collections.Counter(), "bus_bytes": collections.Counter(),
+            "span_s": collections.Counter()}
+recording = torch._C._autograd._profiler_enabled  # a torch.profiler session records
+_OFF = contextlib.nullcontext()
+_open_spans = 0  # spans open in a recording profiler
 _stages: dict[str, float] | None = None  # the open split_wall's totals, or None
 _in_stage = False  # a stage is being timed
 
@@ -99,20 +136,70 @@ def split_wall():
         _stages = None
 
 
-@contextlib.contextmanager
+def count_sync(site: str, times: int = 1) -> None:
+    """`times` host waits on the card at `site`."""
+    SYNCS[site] += times
+    if _open_spans:
+        PROFILED["syncs"][site] += times
+
+
+def count_bytes(kind: str, nbytes: int) -> None:
+    """`nbytes` moved between host and card, of `kind` (BUS_BYTES)."""
+    BUS_BYTES[kind] += nbytes
+    if _open_spans:
+        PROFILED["bus_bytes"][kind] += nbytes
+
+
+class _Span:
+    """A span in the recording profiler's timeline, its seconds into
+    PROFILED["span_s"]; while one is open the counts go to PROFILED too."""
+
+    __slots__ = ("name", "record", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _open_spans
+        _open_spans += 1
+        self.record = _Record(SPAN_PREFIX + self.name)
+        self.record.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        global _open_spans
+        PROFILED["span_s"][self.name] += time.perf_counter() - self.t0
+        _open_spans -= 1
+        return self.record.__exit__(*exc)
+
+
+def span(name: str):
+    """A step of the port, `smt.<name>` in a recording profiler's timeline;
+    nothing without one. It never waits for the card, and `split_wall`
+    does not see it."""
+    return _Span(name) if recording() else _OFF
+
+
 def stage(name: str):
     """One stage of an entry point (a host step, an upload, the kernels, a
-    download): timed into the open `split_wall`, else nothing. A stage
-    inside another is charged to the outer one."""
+    download): a `span`, and timed into the open `split_wall` if there is
+    one. A stage inside another is charged to the outer one."""
+    return span(name) if _stages is None else _timed_stage(name)
+
+
+@contextlib.contextmanager
+def _timed_stage(name: str):
     global _in_stage
-    if _stages is None or _in_stage:
-        yield
+    if _in_stage:
+        with span(name):
+            yield
         return
     _sync()
     _in_stage = True
     t = time.perf_counter()
     try:
-        yield
+        with span(name):
+            yield
     finally:
         _sync()
         _in_stage = False
