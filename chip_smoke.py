@@ -72,8 +72,10 @@ peak device memory:
   a process that only imports the package; the CLI's values step on the
   card (kmer_values on code bytes) as a main path, and the kernel on
   chr21's code bytes against its plain version;
-- `Builder.run_batch` of 1,000,000 random 150 bp reads (canonical
-  minimizers) and of 20,000 reads of 100-10,000 bp (forward minimizers with
+- `Builder.run_batch` of 1,000,000 random 150 bp reads as a (B, L) ASCII
+  matrix (canonical minimizers; folded and slotted on the card by
+  `ascii_slots`, held against its plain version and timed at those shapes)
+  and of 20,000 reads of 100-10,000 bp (forward minimizers with
   a 1% mask; canonical super-k-mers, whose launches run the super-k-mer
   instance with the batch's padding plane): bit-equal to the plain version
   of the same launches on the card and, for 10,000 reads, to the oracle;
@@ -133,8 +135,8 @@ Then the paths of the last slices:
 - the examples, each in a process of its own: `examples.bench` at 1e7
   bases (canonical) and `examples.multihost_demo` (two processes over
   gloo on this card, each against the oracle).
-Every one of the 12 `minimizer_tiles` instances, kmer_top16 and
-kmer_values must have run on a main path. Last, it holds every 1e8 path's builder against the NumPy oracle at
+Every one of the 12 `minimizer_tiles` instances, kmer_top16, kmer_values
+and ascii_slots must have run on a main path. Last, it holds every 1e8 path's builder against the NumPy oracle at
 1e6 chars with a mask of the same shape, and the minimizer builders on the
 golden vectors. Every failed check raises, and the script exits non-zero;
 without CUDA it exits non-zero before printing any result.
@@ -411,13 +413,16 @@ def _main_path(fn):
     return out, wall, launched, (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
-def _expect_launches(name, launched, instance, count, top16=0):
+def _expect_launches(name, launched, instance, count, top16=0, slots=0):
     """The main path ran `instance`, tile_offsets and tile_append `count`
     times each, kmer_top16 `top16` times (the large-w route's pre-pass),
-    and nothing else."""
+    ascii_slots `slots` times (a read matrix's fold on the card), and
+    nothing else."""
     want = {instance: count, "tile_offsets": count, "tile_append": count}
     if top16:
         want["kmer_top16"] = top16
+    if slots:
+        want["ascii_slots"] = slots
     print(f"  main path launches: {launched}")
     if launched != want:
         raise RuntimeError(f"{name}: the main path launched {launched}, not {want}")
@@ -1079,6 +1084,26 @@ def _fasta(ctx, names, codes, masks, out):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _slots_entry(rec, rows, dev):
+    """ascii_slots against its plain version on the card at the read
+    matrix's shapes (one launch of all its rows), timed and recorded."""
+    import torch
+
+    from simd_minimizers_tpu_torch.ops import batch, fused, pipeline
+
+    t = torch.from_numpy(rows).to(dev)
+    stride = batch._stride_bucket(rows.shape[1] + 1)
+    dna = torch.ones(1, dtype=torch.int32, device=dev)
+    got = fused.ascii_slots(t, stride, dna)
+    want = pipeline.ascii_slots_plain(t, stride, torch.ones_like(dna))
+    err = _max_abs_err(got, want)
+    n = rows.shape[0] * stride
+    rec.entry("ascii_slots", "simd_minimizers_tpu/api.py:279", err,
+              _median_ms(lambda: fused.ascii_slots(t, stride, dna), 5, 10, 2),
+              _median_ms(lambda: pipeline.ascii_slots_plain(t, stride, dna), 3, 3, 1),
+              _bound(rows.size + n + -(-n // 8), 0), source="slots.cu")
+
+
 def _read_batches(ctx):
     """Builder.run_batch: 1,000,000 random 150 bp reads (canonical
     minimizers), then 20,000 reads of 100-10,000 bp as forward minimizers
@@ -1112,7 +1137,8 @@ def _read_batches(ctx):
         codes = (short >> 1) & 3 if reads is short else [
             np.frombuffer(r, np.uint8) >> 1 & 3 for r in reads]
         items = list(batch.launches(codes, masks, l, dev))
-        _expect_launches(name, launched, instance, len(items))
+        _expect_launches(name, launched, instance, len(items),
+                         slots=len(items) if reads is short else 0)
         rec.tally(launched, instance, " [codes, nt]")
         nreads = len(reads)
         windows = (sum(max(len(r) - l + 1, 0) for r in reads) if reads is not short
@@ -1142,6 +1168,8 @@ def _read_batches(ctx):
               f"{peak:.1f} MiB; bit-equal to the plain launches and, for {N_READ_ORACLE} reads, "
               f"to the oracle; {note}")
         _split_print("run_batch", lambda: b.run_batch(reads, ambiguous=masks, device=dev))
+        if reads is short:
+            _slots_entry(rec, short, dev)
         widest = max(items, key=lambda it: it[3])
         _tiles_check(rec, instance + " [codes, nt]",
                      (widest[2], widest[3], K, W, tables, rot, canonical, mode, widest[4]),

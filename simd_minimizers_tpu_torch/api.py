@@ -28,8 +28,7 @@ import torch
 from . import convert
 from .hashers import KmerHasher, NtHasher
 from .ops import backend, device_values, fused, oracle, pipeline, values
-from .seq.packed import (_ASCII_TO_CODE, _IS_ACGT, AsciiSeq, GenericSeq, PackedNSeqVec,
-                         PackedSeq, as_seq)
+from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, as_seq
 from .utils.profiling import span, stage
 
 _SYNCMER_NONE, _SYNCMER_CLOSED, _SYNCMER_OPEN = 0, 1, 2
@@ -221,22 +220,22 @@ class Builder:
         indices]), np.uint32, ordered by read, positions local to each read.
         Reads shorter than l = k + w - 1 have no windows and are dropped
         from the output entirely (their ids never appear).
+
+        A matrix crosses to `device` as it is and is folded there, as
+        `as_seq` folds each row: ACGT rows are DNA, others text
+        (`batch.ascii_launches`). A list is folded on the host.
         """
         with span("run_batch"):
             # the reference cannot express it: rejected as the JAX builder does
             pipeline.assert_no_superkmer_ambiguity(self._mode, ambiguous is not None)
+            if isinstance(reads, np.ndarray) and reads.ndim == 2:
+                return backend.sketch_batch(reads, self.k, self.w, self._resolved_hasher(),
+                                            self._mode, ambiguous, ascii=True, device=device)
             with stage("fold reads to codes"):
-                if isinstance(reads, np.ndarray) and reads.ndim == 2:
-                    # as_seq row by row, vectorized: ACGT rows are DNA, others text
-                    rows = np.asarray(reads, dtype=np.uint8)
-                    acgt = _IS_ACGT[rows].all(axis=1)
-                    codes = np.where(acgt[:, None], _ASCII_TO_CODE[rows], rows)
-                    dna = bool(acgt.all())
-                else:
-                    seqs = [as_seq(r) for r in reads]
-                    codes = [s.codes() for s in seqs]
-                    # the seq types decide DNA vs general text exactly: no O(n) probe
-                    dna = not any(isinstance(s, GenericSeq) for s in seqs)
+                seqs = [as_seq(r) for r in reads]
+                codes = [s.codes() for s in seqs]
+                # the seq types decide DNA vs general text exactly: no O(n) probe
+                dna = not any(isinstance(s, GenericSeq) for s in seqs)
             return backend.sketch_batch(codes, self.k, self.w, self._resolved_hasher(), self._mode,
                                         ambiguous, dna=dna, device=device)
 

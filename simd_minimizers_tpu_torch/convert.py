@@ -121,17 +121,18 @@ def text_bytes(seq: GenericSeq, device: torch.device | str) -> torch.Tensor:
     return code_bytes(seq.seq, device)
 
 
-def code_bytes(codes, device: torch.device | str) -> torch.Tensor:
+def code_bytes(codes, device: torch.device | str, name: str = "upload") -> torch.Tensor:
     """A uint8 array of one char per byte (2-bit codes, as the FASTA reader
-    and the batch engine make them, or text) in a uint8 tensor on `device`:
-    1 B per char over the bus and no host packing; a contiguous array
-    crosses without a host copy."""
+    and the batch engine make them, text, or ASCII reads) in a uint8 tensor
+    of its shape on `device`: 1 B per char over the bus and no host packing;
+    a contiguous array crosses without a host copy. `name` names the stage
+    and the sync site."""
     device = require_cuda(device)
     data = np.ascontiguousarray(codes, dtype=np.uint8)
-    with stage("upload"), warnings.catch_warnings():
+    with stage(name), warnings.catch_warnings():
         # bytes input is read-only; no path of the port writes to it
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        return upload(data, device, "upload")
+        return upload(data, device, name)
 
 
 def is_dna(codes: np.ndarray) -> bool:

@@ -23,7 +23,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "minimizers.cu", CSRC / "top16.cu", CSRC / "values.cu")
+SOURCES = (CSRC / "minimizers.cu", CSRC / "top16.cu", CSRC / "values.cu", CSRC / "slots.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC",
@@ -46,6 +46,7 @@ _SIGNATURES = {
     "smt_append_occupancy": ([_I, _P, _P], _I),
     "smt_tile_append": ([_I, _P, _P, _P, _I, _I, _I, _P, _P], _I),
     "smt_kmer_values": ([_I, _P, _LL, _P, _LL, _I, _I, _I, _P, _P], _I),
+    "smt_ascii_slots": ([_I, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
 }
 
 _lib = None

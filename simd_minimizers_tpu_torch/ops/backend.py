@@ -130,9 +130,12 @@ def sketch_records(records, k: int, w: int, hasher: KmerHasher,
 
 def sketch_batch(reads, k: int, w: int, hasher: KmerHasher,
                  mode: str = pipeline.MODE_MINIMIZERS, ambiguous=None,
-                 dna: bool | None = None, *, device: torch.device | str = "cuda"):
+                 dna: bool | None = None, *, ascii: bool = False,
+                 device: torch.device | str = "cuda"):
     """Batched reads: (read_ids, positions[, super-k-mer indices]), np.uint32,
     ordered by read; one launch per stride bucket (ops/batch.py),
-    bit-identical to sketching each read alone."""
+    bit-identical to sketching each read alone. With `ascii`, `reads` is a
+    (B, L) matrix of ASCII reads, folded on the device."""
     check_supported(k, hasher, mode)
-    return batch.sketch_batch(reads, k, w, hasher, mode, ambiguous, dna=dna, device=device)
+    return batch.sketch_batch(reads, k, w, hasher, mode, ambiguous, dna=dna, ascii=ascii,
+                              device=device)

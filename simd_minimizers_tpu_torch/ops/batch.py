@@ -11,6 +11,14 @@ stride`. All reads of a stride bucket go through one launch of the kernel
 lengths by `convert.padding_plane`) in every mode, super-k-mers included.
 Strides are bucketed to a 3-bit mantissa, so padding wastes under 12.5%.
 
+A (B, L) matrix of ASCII reads, as `Builder.run_batch` takes it, has one
+stride and crosses the bus as the caller holds it: each launch's range of
+rows is folded to codes (or kept as text, row by row), laid into slots and
+given its padding plane by one kernel on the device (`ascii_launches`,
+`fused.ascii_slots`), and whether every row was DNA is read back once a
+call. Lists of reads, and matrices of codes folded already, are folded and
+slotted on the host (`launches`).
+
 The read attribution runs on the device too; one stable sort orders the
 values by read, and they come down to the host once.
 """
@@ -22,7 +30,7 @@ import torch
 
 from .. import convert
 from ..utils.device import require_cuda
-from ..utils.profiling import span, stage
+from ..utils.profiling import count_bytes, count_sync, span, stage
 from . import fused, pipeline
 
 # max chars per launch (the kernel takes fewer than 2^31)
@@ -95,16 +103,45 @@ def launches(reads, ambiguous, l: int, device: torch.device):
             yield sub, stride, chars, len(sub) * stride, plane
 
 
+def ascii_launches(matrix: np.ndarray, ambiguous, l: int, device: torch.device,
+                   dna: torch.Tensor):
+    """The launches of a (B, L) uint8 matrix of ASCII reads, as `launches`
+    gives them but with the first row of each in place of its read ids:
+    each launch's contiguous range of rows crosses the bus as the caller
+    holds it (with its (rows, L) flags `ambiguous`, if given), and
+    `fused.ascii_slots` folds it into slots and writes the padding plane on
+    `device`, clearing the int32 word `dna` there unless every row is all
+    ACGT. One stride, `_stride_bucket(L + 1)`, split at MAX_LAUNCH_CHARS;
+    no launch if L < l."""
+    B, L = matrix.shape
+    if L < l:
+        return
+    stride = _stride_bucket(L + 1)
+    per_launch = max(MAX_LAUNCH_CHARS // stride, 1)
+    for r0 in range(0, B, per_launch):
+        r1 = min(r0 + per_launch, B)
+        rows = convert.code_bytes(matrix[r0:r1], device, "ascii upload")
+        amb = (None if ambiguous is None
+               else convert.code_bytes(ambiguous[r0:r1], device, "ascii upload"))
+        with stage("fold on card"):
+            chars, plane = fused.ascii_slots(rows, stride, dna, amb)
+        yield r0, stride, chars, (r1 - r0) * stride, plane
+
+
 def sketch_batch(reads, k: int, w: int, hasher, mode: str = pipeline.MODE_MINIMIZERS,
-                 ambiguous=None, *, dna: bool | None = None,
+                 ambiguous=None, *, dna: bool | None = None, ascii: bool = False,
                  device: torch.device | str = "cuda", backend: str = "fused"):
     """Sketch a batch of reads; one launch per stride bucket.
 
     reads: list of per-read uint8 code arrays (2-bit DNA codes if `dna`,
     raw text bytes if not; None probes them), or a (B, L) uint8 matrix of
-    equal-length reads. `backend` "fused" runs the kernels on a CUDA
-    `device` and their plain versions on the CPU; "pipeline" runs the plain
-    pipeline (`pipeline.run_pipeline`) on the same launches.
+    equal-length reads. With `ascii` reads is a (B, L) matrix of ASCII
+    reads as the caller holds them, folded on `device` as `as_seq` folds
+    each row (`ascii_launches`), and `dna` is read back from there;
+    `ambiguous` is then one mask of L flags per row. `backend` "fused" runs
+    the kernels on a CUDA `device` and their plain versions on the CPU;
+    "pipeline" runs the plain pipeline (`pipeline.run_pipeline`) on the
+    same launches.
 
     Returns (read_ids, positions) with positions local to each read;
     (read_ids, positions, window_indices) for super-k-mers; syncmer modes
@@ -120,29 +157,52 @@ def sketch_batch(reads, k: int, w: int, hasher, mode: str = pipeline.MODE_MINIMI
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     device = require_cuda(device)
+    if ascii and dna is not None:
+        raise ValueError("an ASCII matrix is probed on the device: pass no dna")
     with span("record probe"):
-        if isinstance(reads, np.ndarray) and reads.ndim == 2:
+        if ascii:
             reads = np.asarray(reads, dtype=np.uint8)
+            if reads.ndim != 2:
+                raise ValueError(f"ascii takes a (B, L) matrix of reads, not {reads.ndim}-D")
+            if ambiguous is not None:
+                ambiguous = np.asarray(ambiguous, dtype=np.uint8)
+                if ambiguous.shape != reads.shape:
+                    raise ValueError(f"{ambiguous.shape} flags for {reads.shape} reads")
         else:
-            reads = [np.asarray(r, dtype=np.uint8).ravel() for r in reads]
-        if ambiguous is not None:
-            ambiguous = [np.asarray(a, dtype=np.uint8).ravel() for a in ambiguous]
-        if dna is None:
-            dna = convert.is_dna(reads) if isinstance(reads, np.ndarray) else all(
-                convert.is_dna(rd) for rd in reads)
+            if isinstance(reads, np.ndarray) and reads.ndim == 2:
+                reads = np.asarray(reads, dtype=np.uint8)
+            else:
+                reads = [np.asarray(r, dtype=np.uint8).ravel() for r in reads]
+            if ambiguous is not None:
+                ambiguous = [np.asarray(a, dtype=np.uint8).ravel() for a in ambiguous]
+            if dna is None:
+                dna = convert.is_dna(reads) if isinstance(reads, np.ndarray) else all(
+                    convert.is_dna(rd) for rd in reads)
+    if ascii:
+        # every range folded first: the hasher's tables depend on dna
+        word = torch.ones(1, dtype=torch.int32, device=device)
+        todo = list(ascii_launches(reads, ambiguous, l, device, word))
+        with span("dna probe"):
+            count_sync("dna probe")
+            count_bytes("d2h pageable", word.element_size())
+            dna = bool(word.item())
+    else:
+        todo = launches(reads, ambiguous, l, device)
     text = not dna
     (kind, canonical, rot), tables = convert.hasher_tensors(hasher, device, text)
     run = fused.fused_sketch if backend == "fused" else pipeline.run_pipeline
     superkmers = mode == pipeline.MODE_SUPERKMERS
     parts = []  # (read ids, positions[, window indices]) per launch, on the device
-    for sub, stride, chars, n, plane in launches(reads, ambiguous, l, device):
+    for ids, stride, chars, n, plane in todo:
         with stage("kernels"):
             res = run(chars, n, k, w, tables, rot, canonical, mode, plane, text=text, kind=kind,
                       byte_codes=not text)
         with stage("read attribution and order"):
             out, idx = res if superkmers else (res, None)
             slot = (idx if superkmers else out).long() // stride
-            part = [convert.upload(sub, device, "read ids")[slot], out.long() - slot * stride]
+            # a matrix's launch holds rows ids, ids + 1, ...; a bucket's, the reads `ids`
+            read = slot + ids if ascii else convert.upload(ids, device, "read ids")[slot]
+            part = [read, out.long() - slot * stride]
             if superkmers:
                 part.append(idx.long() - slot * stride)
             parts.append(part)

@@ -8,7 +8,8 @@ Counterpart of `simd_minimizers_tpu/ops/fused.py` (`fused_supported`,
 `csrc/minimizers.cu` and `csrc/top16.cu`; see their headers for the
 design. They read the plain 2-bit byte stream, 2-bit codes one per byte,
 or the raw text bytes, so the TPU's row- and byte-striped repacks have no
-counterpart here.
+counterpart here. `ascii_slots` (`csrc/slots.cu`) lays a batch's ASCII
+read matrix into the batch engine's slots on the card (ops/batch.py).
 
 `fused_sketch` is `_fused_launch` (`minimizer_tiles`, `tile_offsets`; no
 host sync) then `_fused_harvest` (the total, `tile_append`): three
@@ -93,7 +94,7 @@ LAUNCHES = {instance_name(c, m, a): 0
             for m in (pipeline.MODE_MINIMIZERS, pipeline.MODE_SUPERKMERS,
                       pipeline.MODE_CLOSED_SYNCMERS)
             for a in (False, True) for c in (True, False)}
-LAUNCHES.update({"kmer_top16": 0, "tile_offsets": 0, "tile_append": 0})
+LAUNCHES.update({"kmer_top16": 0, "tile_offsets": 0, "tile_append": 0, "ascii_slots": 0})
 MAX_LAUNCH_CHARS = 1 << 31  # chars of one launch: in-kernel values are below 2^31
 MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 
@@ -542,6 +543,51 @@ def tile_append(scratch: torch.Tensor, counts: torch.Tensor, offsets: torch.Tens
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES["tile_append"] += 1
     return out
+
+
+def ascii_slots(rows: torch.Tensor, stride: int, dna: torch.Tensor,
+                ambiguous: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batch engine's slots of a (R, L) uint8 matrix of ASCII reads, as
+    the caller holds them, at `stride` > L chars a slot: (chars, plane),
+    the chars one code or text byte each (row r at [r * stride, r * stride
+    + L), folded to 2-bit codes where the whole row is ACGTacgt, raw bytes
+    otherwise, zeros after it) and the launch's 1-bit padding plane, the
+    rows' own flags `ambiguous` ((R, L) uint8, nonzero = flagged) or'ed in
+    (as `pipeline.ascii_slots_plain` computes them). `dna`, an int32 (1,)
+    tensor on the same device, is set to 0 unless every row is all ACGT:
+    the launches of one call share it, and it is read once after them. On
+    the card one launch (csrc/slots.cu: a row's chunks in one warp),
+    counted in LAUNCHES."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous (R, L) uint8 tensor")
+    R, L = rows.shape
+    if not L < stride or R * stride >= MAX_LAUNCH_CHARS:
+        raise ValueError(f"stride {stride} must pass L = {L}, and {R} slots of it stay under "
+                         f"2^31 chars")
+    if ambiguous is not None and (ambiguous.dtype != torch.uint8 or ambiguous.shape != rows.shape
+                                  or ambiguous.device != rows.device
+                                  or not ambiguous.is_contiguous()):
+        raise ValueError("ambiguous must be a contiguous uint8 tensor shaped and placed as rows")
+    if dna.dtype != torch.int32 or dna.shape != (1,) or dna.device != rows.device:
+        raise ValueError("dna must be an int32 (1,) tensor on the device of rows")
+    if _device_kind(rows) == "cpu":
+        return pipeline.ascii_slots_plain(rows, stride, dna, ambiguous)
+    dev = rows.device
+    n = R * stride
+    chars = torch.empty(n, dtype=torch.uint8, device=dev)
+    plane = torch.empty(-(-n // 8), dtype=torch.uint8, device=dev)
+    if R == 0:
+        return chars, plane
+    if any(t.data_ptr() % 4 for t in (rows, *([] if ambiguous is None else [ambiguous]))):
+        raise ValueError("rows and ambiguous must start on 4 bytes (read a word at a time)")
+    lib = _library(dev)
+    _check(lib.smt_ascii_slots(dev.index, rows.data_ptr(),
+                               None if ambiguous is None else ambiguous.data_ptr(), R, L, stride,
+                               chars.data_ptr(), plane.data_ptr(), dna.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream), "ascii_slots")
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["ascii_slots"] += 1
+    return chars, plane
 
 
 def _fused_launch(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,

@@ -343,3 +343,29 @@ def tile_append_plain(scratch: torch.Tensor, counts: torch.Tensor, offsets: torc
     out = torch.zeros(planes.shape[0], total, dtype=torch.int32, device=scratch.device)
     out[:, offsets[rows].long() + cols] = planes[:, rows, cols]
     return out.view(*scratch.shape[:-1], total)
+
+
+def ascii_slots_plain(rows: torch.Tensor, stride: int, dna: torch.Tensor,
+                      ambiguous: torch.Tensor | None = None):
+    """The slots of a (R, L) uint8 matrix of ASCII reads at `stride` > L
+    chars a slot: (chars, plane). chars (R * stride,) uint8: row r at
+    [r * stride, r * stride + L), folded to (b >> 1) & 3 if every byte of
+    the row is one of ACGTacgt, raw otherwise, zeros after it; plane the
+    1-bit plane of the R * stride chars (char i at bit i % 8 of byte i //
+    8): padding, the rows' own nonzero flags `ambiguous` ((R, L) uint8, or
+    None) and the bits past the last char set. `dna`, an int32 (1,) tensor,
+    is cleared in place unless every row is all ACGT."""
+    R, L = rows.shape
+    lower = rows | 0x20
+    acgt = ((lower == ord("a")) | (lower == ord("c")) | (lower == ord("g"))
+            | (lower == ord("t"))).all(dim=1)
+    dna &= acgt.all().to(torch.int32)
+    chars = rows.new_zeros(R, stride)
+    chars[:, :L] = torch.where(acgt[:, None], (rows >> 1) & 3, rows)
+    flags = torch.ones(R, stride, dtype=torch.bool, device=rows.device)
+    flags[:, :L] = False if ambiguous is None else ambiguous != 0
+    flags = flags.reshape(-1)
+    flags = torch.cat([flags, flags.new_ones(-flags.numel() % 8)]).view(-1, 8)
+    weights = 1 << torch.arange(8, device=rows.device)
+    plane = (flags.long() * weights).sum(1).to(torch.uint8)
+    return chars.reshape(-1), plane

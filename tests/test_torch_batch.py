@@ -2,7 +2,10 @@
 kernels' plain versions, and the plain pipeline route) == the JAX package's
 `sketch_batch(backend="fused", interpret=True)` (C=1024) on the cases of
 tests/test_batch.py == the per-read NumPy oracle; and `Builder.run_batch`
-against the JAX builder's.
+against the JAX builder's. A (B, L) ASCII matrix takes its own route
+(folded and slotted by `fused.ascii_slots`, here its plain version): held
+to the host route's slots and plane, and to the same rows as a list and
+to the JAX builder's run_batch in three modes.
 
 Integer outputs: tolerance 0. The kernels run the same launches on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
@@ -10,6 +13,7 @@ Integer outputs: tolerance 0. The kernels run the same launches on the card
 
 import numpy as np
 import pytest
+import torch
 
 import simd_minimizers_tpu as sm
 import simd_minimizers_tpu_torch as smt
@@ -210,3 +214,127 @@ def test_run_batch_vs_jax_builder(mode):
         got = port.run_batch(raw, ambiguous=amb, device="cpu")
         for g, p in zip(got, ref.run_batch(raw, ambiguous=amb), strict=True):
             np.testing.assert_array_equal(g, p)
+
+
+# -- the matrix route: a (B, L) ASCII matrix folded and slotted on the device --
+
+
+def _host_slots(rows, stride, amb):
+    """What the host route makes of an ASCII matrix: the fold of
+    Builder.run_batch before the matrix route (as_seq row by row), then
+    `_fill_slots` and `convert.padding_plane`."""
+    from simd_minimizers_tpu_torch.seq.packed import _ASCII_TO_CODE, _IS_ACGT
+
+    acgt = _IS_ACGT[rows].all(axis=1)
+    codes = np.where(acgt[:, None], _ASCII_TO_CODE[rows], rows)
+    chars, flags = batch._fill_slots(codes, None if amb is None else list(amb), stride)
+    plane = convert.padding_plane([rows.shape[1]] * rows.shape[0], stride, "cpu",
+                                  None if flags is None else convert.code_bytes(flags, "cpu"))
+    return chars, plane.numpy(), bool(acgt.all())
+
+
+@pytest.mark.parametrize("L,stride,masked", [(150, 160, False), (150, 160, True), (1, 8, True),
+                                             (7, 9, False), (13, 14, True), (31, 36, False),
+                                             (62, 64, True), (497, 512, False),
+                                             (600, 640, True)])
+@pytest.mark.parametrize("alphabet", ["bytes", "acgt", "acgt and one N"])
+def test_ascii_slots_plain_is_the_host_route(L, stride, masked, alphabet):
+    """fused.ascii_slots on the CPU (its plain version) gives the host
+    route's slots, plane and DNA verdict bit for bit."""
+    rng = np.random.default_rng(L * 7 + stride)
+    if alphabet == "bytes":
+        rows = rng.integers(0, 256, (9, L), dtype=np.uint8)
+    else:
+        rows = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, (9, L))]
+        if alphabet != "acgt":
+            rows[4, L // 2] = ord("N")
+    amb = (rng.random((9, L)) < 0.1).astype(np.uint8) * 3 if masked else None
+    dna = torch.ones(1, dtype=torch.int32)
+    chars, plane = fused.ascii_slots(torch.from_numpy(rows), stride, dna,
+                                     None if amb is None else torch.from_numpy(amb))
+    want_chars, want_plane, want_dna = _host_slots(rows, stride, amb)
+    np.testing.assert_array_equal(chars.numpy(), want_chars)
+    np.testing.assert_array_equal(plane.numpy(), want_plane)
+    assert bool(dna.item()) == want_dna
+
+
+def _matrix_case(case):
+    """(matrix, masks or None) of a named case of the matrix route."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    mixed = np.frombuffer(b"ACGTacgt", np.uint8)
+    rows = mixed[rng.integers(0, 8, (7, 90))]
+    if case == "upper and lower case":
+        return rows, None
+    if case == "one N":
+        rows[3, 40] = ord("N")
+        return rows, None
+    if case == "all text":
+        return rng.integers(32, 127, (5, 120), dtype=np.uint8), None
+    if case == "shorter than a window":
+        return rows[:, :10].copy(), None
+    if case == "one read":
+        return rows[:1].copy(), None
+    if case == "masks":
+        return rows, (rng.random(rows.shape) < 0.03).astype(np.uint8)
+    if case == "split launches":
+        return mixed[rng.integers(0, 8, (11, 64))], None
+    if case == "non-contiguous view":
+        return mixed[rng.integers(0, 8, (14, 200))][::2, 5:150], None
+    raise ValueError(case)
+
+
+MATRIX_CASES = ["upper and lower case", "one N", "all text", "shorter than a window",
+                "one read", "masks", "split launches", "non-contiguous view"]
+
+
+@pytest.mark.parametrize("mode", [pipeline.MODE_MINIMIZERS, SKM, pipeline.MODE_OPEN_SYNCMERS])
+@pytest.mark.parametrize("case", MATRIX_CASES)
+def test_run_batch_matrix_route(case, mode, monkeypatch):
+    """Builder.run_batch of a (B, L) matrix (folded and slotted by
+    fused.ascii_slots, here its plain version) == the same rows as a list
+    (folded on the host) == the JAX builder's run_batch."""
+    rows, masks = _matrix_case(case)
+    if case == "split launches":
+        monkeypatch.setattr(batch, "MAX_LAUNCH_CHARS", 3 * 72)  # 3 rows of stride 72 a launch
+    syncmer = 2 if mode == pipeline.MODE_OPEN_SYNCMERS else 0
+    port = smt.Builder(5, 7, True, syncmer=syncmer)
+    ref = sm.Builder(5, 7, True, syncmer=syncmer)
+    if mode == SKM:
+        port, ref = port.super_kmers(), ref.super_kmers()
+    listed = [r.tobytes() for r in rows]
+    amb = None if masks is None else list(masks)
+    if mode == SKM and masks is not None:
+        with pytest.raises(AssertionError, match="cannot be combined with an ambiguity"):
+            port.run_batch(rows, ambiguous=masks, device="cpu")
+        return
+    called = []
+    slots = fused.ascii_slots
+    monkeypatch.setattr(fused, "ascii_slots", lambda *a: called.append(1) or slots(*a))
+    got = port.run_batch(rows, ambiguous=masks, device="cpu")
+    want_launches = 0 if rows.shape[1] < 11 else 4 if case == "split launches" else 1
+    assert len(called) == want_launches
+    for g, h, r in zip(got, port.run_batch(listed, ambiguous=amb, device="cpu"),
+                       ref.run_batch(listed, ambiguous=amb), strict=True):
+        assert g.dtype == np.uint32
+        np.testing.assert_array_equal(g, h)
+        np.testing.assert_array_equal(g, r)
+    if case == "shorter than a window":
+        assert got[0].size == 0
+
+
+def test_matrix_route_takes_no_dna_and_a_mask_per_row():
+    """sketch_batch's ascii flag is the matrix route's key: it refuses a
+    dna verdict (the device probes it) and masks of another shape; a
+    matrix of codes without the flag is not folded again."""
+    h = convert.hasher_from(NtHasher(5, canonical=True))
+    rows = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(3).integers(0, 4, (4, 40))]
+    with pytest.raises(ValueError, match="pass no dna"):
+        batch.sketch_batch(rows, 5, 7, h, ascii=True, dna=True, device="cpu")
+    with pytest.raises(ValueError, match="flags for"):
+        batch.sketch_batch(rows, 5, 7, h, ambiguous=np.zeros((4, 39), np.uint8), ascii=True,
+                           device="cpu")
+    codes = (rows >> 1) & 3
+    got = batch.sketch_batch(codes, 5, 7, h, dna=True, device="cpu")
+    for g, r in zip(got, batch.sketch_batch(rows, 5, 7, h, ascii=True, device="cpu"),
+                    strict=True):
+        np.testing.assert_array_equal(g, r)

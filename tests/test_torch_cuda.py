@@ -5,7 +5,8 @@ syncmers x ambiguity plane), on 2-bit DNA (packed and one code per byte)
 and on text, with the nt, mul and antilex hashers, with a launch offset,
 and both small kernels, around tile seams; and the drivers that run them:
 sketch_long across many seams, sketch_records (pinned downloads reused
-across waves) and the batch engine behind run_batch; the large-w route
+across waves) and the batch engine behind run_batch, with the ascii_slots
+kernel that folds a read matrix on the card; the large-w route
 (both routes bit-equal, w up to 61,439), ShortSeqSketcher's captured
 graph, sharded sketching on one card and NCCL in a world of one; the
 kmer_values kernel against its plain version and the host (positions past
@@ -791,6 +792,81 @@ def test_run_batch_vs_plain_and_oracle(dev, mode, masked):
         want = _oracle(c, k, w, h, mode, None if ambs is None else ambs[i])
         for p, r in zip(planes, want if mode == SKM else (want,), strict=True):
             np.testing.assert_array_equal(p[rid == i], r, err_msg=f"read {i}")
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 8, 15, 16, 31, 33, 63, 100, 150, 151, 255, 497, 498,
+                               512, 513, 1000, 4097])
+@pytest.mark.parametrize("masked", [False, True])
+def test_ascii_slots_vs_plain(dev, L, masked):
+    """fused.ascii_slots on the card against its plain version on the same
+    card: random bytes over all 256 values, ACGTacgt rows with a text row
+    among them, and all-ACGT rows; the bucketed stride and wider ones (a
+    slot's edge off every alignment), row counts that end a launch
+    mid-word, a range of rows taken out of a larger upload; rows past
+    about 32 x 16 B read twice."""
+    from simd_minimizers_tpu_torch.ops import batch
+
+    rng = np.random.default_rng(L * 2 + masked)
+    mixed = np.frombuffer(b"ACGTacgt", np.uint8)
+    for rows_n, stride in [(1, batch._stride_bucket(L + 1)), (37, batch._stride_bucket(L + 1)),
+                           (53, L + 1), (29, L + 3 + int(rng.integers(0, 21)))]:
+        for alphabet in ("bytes", "acgt, one text row", "acgt"):
+            if alphabet == "bytes":
+                rows = rng.integers(0, 256, (rows_n, L), dtype=np.uint8)
+            else:
+                rows = mixed[rng.integers(0, 8, (rows_n, L))]
+                if alphabet != "acgt":
+                    rows[rows_n // 2, int(rng.integers(0, L))] = ord("N")
+            amb = ((rng.random((rows_n, L)) < 0.05) * rng.integers(1, 256, (rows_n, L))
+                   ).astype(np.uint8) if masked else None
+            for r0, r1 in [(0, rows_n), (rows_n // 3, rows_n)]:
+                t = torch.from_numpy(rows[r0:r1].copy()).to(dev)
+                a = None if amb is None else torch.from_numpy(amb[r0:r1].copy()).to(dev)
+                got_dna = torch.ones(1, dtype=torch.int32, device=dev)
+                want_dna = torch.ones(1, dtype=torch.int32, device=dev)
+                before = fused.LAUNCHES["ascii_slots"]
+                got = fused.ascii_slots(t, stride, got_dna, a)
+                want = pipeline.ascii_slots_plain(t, stride, want_dna, a)
+                torch.cuda.synchronize()
+                assert fused.LAUNCHES["ascii_slots"] == before + 1
+                what = f"{alphabet}, rows {r0}..{r1} of {rows_n}, stride {stride}"
+                for g, w in zip(got, want, strict=True):
+                    np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(), err_msg=what)
+                assert int(got_dna.item()) == int(want_dna.item()), what
+
+
+@pytest.mark.parametrize("mode", [pipeline.MODE_MINIMIZERS, SKM, OPEN])
+@pytest.mark.parametrize("case", ["acgt", "one N", "masks", "split launches", "view"])
+def test_run_batch_matrix_route_on_card(dev, mode, case, monkeypatch):
+    """Builder.run_batch of a (B, L) ASCII matrix on the card (ascii_slots,
+    then the kernels) == the same rows as a list on the card (folded on the
+    host) == the matrix route on the CPU (the plain versions)."""
+    from simd_minimizers_tpu_torch.ops import batch
+
+    rng = np.random.default_rng(len(case) * 3 + len(mode))
+    rows = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, (3001, 150))]
+    masks = None
+    if case == "one N":
+        rows[1234, 77] = ord("N")
+    elif case == "masks" and mode != SKM:
+        masks = (rng.random(rows.shape) < 0.01).astype(np.uint8)
+    elif case == "split launches":
+        monkeypatch.setattr(batch, "MAX_LAUNCH_CHARS", 1000 * 160)
+    elif case == "view":
+        rows = rows[::2, 3:140]
+    syncmer = 2 if mode == OPEN else 0
+    b = api.Builder(21, 11, mode != OPEN, syncmer=syncmer)
+    if mode == SKM:
+        b = b.super_kmers()
+    before = fused.LAUNCHES["ascii_slots"]
+    got = b.run_batch(rows, ambiguous=masks, device=dev)
+    assert fused.LAUNCHES["ascii_slots"] == before + (4 if case == "split launches" else 1)
+    listed = b.run_batch([r.tobytes() for r in rows],
+                         ambiguous=None if masks is None else list(masks), device=dev)
+    plain = b.run_batch(rows, ambiguous=masks, device="cpu")
+    for g, h, p in zip(got, listed, plain, strict=True):
+        np.testing.assert_array_equal(g, h)
+        np.testing.assert_array_equal(g, p)
 
 
 def test_wall_split_on_card(dev):

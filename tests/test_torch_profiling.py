@@ -137,6 +137,7 @@ K, W = 7, 5
 HASHER = smt.NtHasher(K, canonical=True)
 _rng = np.random.default_rng(0x5919)
 READS = np.frombuffer(b"ACGT", np.uint8)[_rng.integers(0, 4, (40, 150))]  # one stride bucket
+READ_LIST = [r.tobytes() for r in READS]
 RECORDS = [_rng.integers(0, 4, int(n), dtype=np.uint8) for n in _rng.integers(40, 900, 10)]
 RECORDS.append(_rng.integers(0, 4, 5000, dtype=np.uint8))
 MASKS = [(_rng.random(r.size) < 0.02).astype(np.uint8) for r in RECORDS]
@@ -155,9 +156,14 @@ def _short():
 ENTRIES = {
     "run_batch": (lambda: smt.canonical_minimizers(K, W).run_batch(READS, device="cpu"),
                   "run_batch",
-                  {"fold reads to codes", "record probe", "hasher tables", "stride buckets",
-                   "slot fill", "upload and padding plane", "upload", "kernels",
-                   "totals readback", "read attribution and order", "download wait"}),
+                  {"record probe", "ascii upload", "fold on card", "dna probe", "hasher tables",
+                   "kernels", "totals readback", "read attribution and order", "download wait"}),
+    "run_batch, list": (
+        lambda: smt.canonical_minimizers(K, W).run_batch(READ_LIST, device="cpu"),
+        "run_batch",
+        {"fold reads to codes", "record probe", "hasher tables", "stride buckets", "slot fill",
+         "upload and padding plane", "upload", "kernels", "totals readback",
+         "read attribution and order", "download wait"}),
     "sketch_records, span route": (
         lambda: backend.sketch_records(RECORDS, K, W, HASHER, pipeline.MODE_MINIMIZERS, MASKS,
                                        device="cpu", batch_max_bp=0),
@@ -191,7 +197,12 @@ def _expected_counts(entry: str, out):
     """(SYNCS, BUS_BYTES) of one call of `entry` on the CPU, from its
     inputs: every blocking upload waits for the card's stream and counts as
     a sync; 2-bit nt tables are 2 x 4 int64 (64 B)."""
-    if entry == "run_batch":
+    if entry == "run_batch":  # the matrix folded on the device
+        return ({"ascii upload": 1, "dna probe": 1, "tables upload": 1, "totals readback": 1,
+                 "download wait": 1},
+                {"h2d pageable": READS.size + 64, "d2h pageable": 4 + 4,
+                 "d2h pinned": 4 * 2 * out[1].size})
+    if entry == "run_batch, list":
         stride = batch._stride_bucket(READS.shape[1] + 1)
         n = READS.shape[0]
         syncs = {"tables upload": 1, "padding plane": 2, "upload": 1, "totals readback": 1,
@@ -322,11 +333,76 @@ def test_counters_per_call(entry):
 def test_run_batch_split_keys_are_unchanged(bucketed):
     """split_wall's stages of run_batch are those it always had: the spans
     added beside them stay out of it."""
-    reads = READS if bucketed else [r.tobytes() for r in READS[:, :100]] + [b"ACGTACGTACGTAC"]
+    reads = (READ_LIST if bucketed
+             else [r.tobytes() for r in READS[:, :100]] + [b"ACGTACGTACGTAC"])
     with profiling.split_wall() as parts:
         smt.canonical_minimizers(K, W).run_batch(reads, device="cpu")
     assert set(parts) == {"fold reads to codes", "slot fill", "upload and padding plane",
                           "kernels", "read attribution and order"}
+
+
+def test_run_batch_matrix_split_keys():
+    """A matrix's stages: its upload as the caller holds it and the fold on
+    the device take the place of the host fold and slot fill."""
+    with profiling.split_wall() as parts:
+        smt.canonical_minimizers(K, W).run_batch(READS, device="cpu")
+    assert set(parts) == {"ascii upload", "fold on card", "kernels",
+                          "read attribution and order"}
+
+
+def _matrix_call_counts(dev, monkeypatch, ranges):
+    """One run_batch of READS on `dev` split into `ranges` launch ranges,
+    under a recording profiler: (ascii_slots calls, LAUNCHES added, SYNCS
+    added, the spans recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simd_minimizers_tpu_torch.ops import fused
+
+    stride = batch._stride_bucket(READS.shape[1] + 1)
+    monkeypatch.setattr(batch, "MAX_LAUNCH_CHARS", -(-READS.shape[0] // ranges) * stride)
+    b = smt.canonical_minimizers(K, W)
+    b.run_batch(READS, device=dev)  # built and warm
+    calls = []
+    slots = fused.ascii_slots
+    monkeypatch.setattr(fused, "ascii_slots", lambda *a: calls.append(1) or slots(*a))
+    launches, syncs = dict(fused.LAUNCHES), collections.Counter(profiling.SYNCS)
+    _clear_profiled()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev == "cuda" else [])
+    with profile(activities=acts):
+        b.run_batch(READS, device=dev)
+    added = {k: v - launches[k] for k, v in fused.LAUNCHES.items() if v != launches[k]}
+    return len(calls), added, profiling.SYNCS - syncs, set(profiling.PROFILED["span_s"])
+
+
+@pytest.mark.parametrize("ranges", [1, 3])
+def test_matrix_run_batch_folds_once_a_range_and_probes_once(ranges, monkeypatch):
+    """On the CPU: one ascii_slots call a launch range (its plain version,
+    so no launch is counted), one dna probe a call, and the three spans of
+    the matrix route recorded."""
+    calls, added, syncs, spans = _matrix_call_counts("cpu", monkeypatch, ranges)
+    assert calls == ranges and added == {}
+    assert syncs["dna probe"] == 1 and syncs["ascii upload"] == ranges
+    assert {"ascii upload", "fold on card", "dna probe"} <= spans
+    assert not spans & {"fold reads to codes", "slot fill", "stride buckets"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranges", [1, 3])
+def test_matrix_run_batch_launches_on_the_card(ranges, monkeypatch):
+    """On a card: exactly one ascii_slots launch a launch range beside the
+    three minimizer kernels of each, one dna probe a call, and the three
+    spans of the matrix route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from simd_minimizers_tpu_torch.ops import fused
+
+    calls, added, syncs, spans = _matrix_call_counts("cuda", monkeypatch, ranges)
+    tiles = fused.instance_name(True, pipeline.MODE_MINIMIZERS, True)
+    assert calls == ranges
+    assert added == {"ascii_slots": ranges, tiles: ranges, "tile_offsets": ranges,
+                     "tile_append": ranges}
+    assert syncs["dna probe"] == 1
+    assert {"ascii upload", "fold on card", "dna probe"} <= spans
 
 
 @pytest.mark.parametrize("batch_max_bp,masked", [(0, True), (0, False), (1000, True),
