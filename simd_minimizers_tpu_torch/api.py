@@ -50,7 +50,10 @@ class Output:
     JAX package picks the device by a probe of the link instead; at the
     card's pinned bus (53-55 GB/s down, PERF.md section 5) the download
     costs about 0.15 ns a value against the host's tens of ns, so such a
-    probe could only pick the card. Both routes are bit-equal.
+    probe could only pick the card. Both routes are bit-equal. A run asked
+    for `values` computed the u64 values in the sketch call, from the
+    sequence and the positions where they lay, and `values_u64` returns
+    those.
     """
 
     length: int
@@ -59,6 +62,7 @@ class Output:
     superkmer_indices: np.ndarray | None = None
     canonical: bool = False
     _device: torch.device | None = dataclasses.field(default=None, repr=False)
+    _values_u64: np.ndarray | None = dataclasses.field(default=None, repr=False)
 
     def _codes(self) -> np.ndarray:
         return self.seq.codes()
@@ -81,6 +85,8 @@ class Output:
                   canonical=self.canonical)
 
     def values_u64(self) -> np.ndarray:
+        if self._values_u64 is not None:
+            return self._values_u64
         if self._on_card(32):
             return self._card_values(device_values.kmer_values_u64)
         fn = values.canonical_kmer_values_u64 if self.canonical else values.kmer_values_u64
@@ -144,10 +150,17 @@ class Builder:
         return pipeline.MODE_SUPERKMERS if self._super_kmers else pipeline.MODE_MINIMIZERS
 
     def run(self, seq, ambiguous: np.ndarray | None = None,
-            device: torch.device | str = "cuda") -> Output:
+            device: torch.device | str = "cuda", values: bool = False) -> Output:
         """Positions (window indices for syncmers, with the first-window
         indices for super-k-mers) of `seq` on `device`. Windows holding a
         char that the per-char mask `ambiguous` flags are skipped.
+
+        With `values` (minimizers and super-k-mers of DNA, k <= 32; else
+        NotImplementedError) the sketch call computes each kept k-mer's u64
+        value on `device` too (`backend.sketch(..., values=True)`), and they
+        come back with the positions: `values_u64` returns them, and
+        nothing crosses the bus again. Without it nothing of the run stays
+        on the card, and `values_u64` computes them when asked.
 
         `seq` is a sequence of the port (`PackedSeq`, `AsciiSeq` or
         `GenericSeq`), or bytes, str or a uint8 array (`as_seq`); any other
@@ -169,13 +182,17 @@ class Builder:
                             f"{type(seq).__name__} (run_skip_ambiguous_windows takes a "
                             "PackedNSeqVec)")
         amb = None if ambiguous is None else convert.ambiguity_plane(ambiguous, n, device)
-        res = backend.sketch(chars, n, self.k, self.w, self._resolved_hasher(), mode, amb, text)
+        res = backend.sketch(chars, n, self.k, self.w, self._resolved_hasher(), mode, amb, text,
+                             values=values)
+        out = convert.Download(res).result()
+        vals = None
+        if values:  # the last plane: int64 holding the u64 bits
+            vals, out = out[-1].view(np.uint64), (out[:-1] if len(out) > 2 else out[0])
         if mode == pipeline.MODE_SUPERKMERS:
-            pos, idx = convert.Download(res).result()
-            return Output(self._out_length, seq, pos, idx, self.canonical, chars.device)
-        positions = convert.Download(res).result()
-        return Output(self._out_length, seq, positions, canonical=self.canonical,
-                      _device=chars.device)
+            pos, idx = out
+            return Output(self._out_length, seq, pos, idx, self.canonical, chars.device, vals)
+        return Output(self._out_length, seq, out, canonical=self.canonical,
+                      _device=chars.device, _values_u64=vals)
 
     def run_scalar(self, seq, ambiguous: np.ndarray | None = None) -> Output:
         """NumPy-oracle run (the reference's scalar path; for testing)."""

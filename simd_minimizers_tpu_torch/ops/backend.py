@@ -51,7 +51,7 @@ def _check_parameters(k: int, w: int, hasher: KmerHasher, mode: str) -> None:
 
 def sketch(chars: torch.Tensor, n: int, k: int, w: int, hasher: KmerHasher,
            mode: str = pipeline.MODE_MINIMIZERS, ambiguous: torch.Tensor | None = None,
-           text: bool = False):
+           text: bool = False, values: bool = False):
     """int32 positions (window indices for syncmers; u32 bits), on
     chars.device, of the first n chars of `chars`: the 2-bit byte stream of
     convert.packed_words, or with `text` the bytes of convert.text_bytes;
@@ -61,17 +61,29 @@ def sketch(chars: torch.Tensor, n: int, k: int, w: int, hasher: KmerHasher,
     sequences of 2^30 chars or more stream through `fused.sketch_long` in
     2^29-char spans; on a CPU tensor, sequences of more than
     chunked.PIPELINE_CHUNK_WINDOWS windows stream in spans of that many
-    windows (`chunked.sketch`), which bounds the plain version's memory."""
+    windows (`chunked.sketch`), which bounds the plain version's memory.
+
+    With `values` (2-bit minimizers and super-k-mers, k <= 32; anything
+    else raises NotImplementedError) one more plane follows: each kept
+    k-mer's 2-bit value, canonical where the hasher is, an int64 tensor
+    holding the u64 bits, computed by `kmer_values` on chars.device from
+    `chars` and the positions before anything leaves the card
+    (`fused.with_values`)."""
     with span("sketch"):
         _check_parameters(k, w, hasher, mode)
+        if values:
+            fused.check_values(k, mode, text)
         if chars.device.type == "cpu" and n - (k + w - 1) + 1 > chunked.PIPELINE_CHUNK_WINDOWS:
-            return chunked.sketch(chars, n, k, w, hasher, mode, ambiguous, text=text)
-        if n >= LONG_SEQUENCE_CHARS:
-            return fused.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
-        (kind, canonical, rot_offset), tables = convert.hasher_tensors(hasher, chars.device, text)
-        with span("kernels"):
-            return fused.fused_sketch(chars, n, k, w, tables, rot_offset, canonical, mode,
-                                      ambiguous, text=text, kind=kind)
+            res = chunked.sketch(chars, n, k, w, hasher, mode, ambiguous, text=text)
+        elif n >= LONG_SEQUENCE_CHARS:
+            res = fused.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
+        else:
+            (kind, canonical, rot_offset), tables = convert.hasher_tensors(hasher, chars.device,
+                                                                           text)
+            with span("kernels"):
+                res = fused.fused_sketch(chars, n, k, w, tables, rot_offset, canonical, mode,
+                                         ambiguous, text=text, kind=kind)
+        return fused.with_values(res, chars, k, hasher.canonical) if values else res
 
 
 def sketch_records(records, k: int, w: int, hasher: KmerHasher,

@@ -25,9 +25,8 @@ import torch
 
 from .. import convert
 from . import _build
+from .fused import LAUNCHES  # the kernel's launches under "kmer_values" (CUDA tensors only)
 
-# Launches of the kernel, counted where it is launched (CUDA tensors only).
-LAUNCHES = {"kmer_values": 0}
 MASK32 = 0xFFFF_FFFF
 
 

@@ -89,12 +89,14 @@ def instance_name(canonical: bool, mode: str, ambiguous: bool) -> str:
 
 # Launches per kernel instance, counted where each is launched (CUDA tensors
 # only). Every instance csrc/minimizers.cu builds (tiles_instance) has an
-# entry: 2 strands x 3 mode families x with and without an ambiguity plane.
+# entry: 2 strands x 3 mode families x with and without an ambiguity plane;
+# `kmer_values` is counted here by ops/device_values.py, which launches it.
 LAUNCHES = {instance_name(c, m, a): 0
             for m in (pipeline.MODE_MINIMIZERS, pipeline.MODE_SUPERKMERS,
                       pipeline.MODE_CLOSED_SYNCMERS)
             for a in (False, True) for c in (True, False)}
-LAUNCHES.update({"kmer_top16": 0, "tile_offsets": 0, "tile_append": 0, "ascii_slots": 0})
+LAUNCHES.update({"kmer_top16": 0, "tile_offsets": 0, "tile_append": 0, "ascii_slots": 0,
+                 "kmer_values": 0})
 MAX_LAUNCH_CHARS = 1 << 31  # chars of one launch: in-kernel values are below 2^31
 MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 
@@ -614,6 +616,45 @@ def _fused_harvest(handles, mode: str, cnt: int | None = None):
             cnt = int(offsets[-1])
     out = tile_append(scratch, counts, offsets, cnt)
     return (out[0], out[1]) if mode == pipeline.MODE_SUPERKMERS else out
+
+
+def check_values(k: int, mode: str, text: bool) -> None:
+    """Raise NotImplementedError where a sketch's values have no route:
+    syncmers (their values would be of (k + w - 1)-mers at window indices),
+    text (8-bit chars) and k > 32 (the values are u64)."""
+    if mode in pipeline.SYNCMER_MODES or text or k > 32:
+        raise NotImplementedError(
+            f"values=True covers 2-bit minimizers and super-k-mers at k <= 32, not {mode} "
+            f"of {'text' if text else '2-bit DNA'} at k={k} (Output computes the others)")
+
+
+def with_values(res, chars: torch.Tensor, k: int, canonical: bool, byte_codes: bool = False):
+    """`res` (positions, or (positions, first-window indices)) with one more
+    plane behind it: the 2-bit value of the k-mer (k <= 32) at each
+    position of the sequence in `chars`, canonical the least of the forward
+    and the reverse complement value, as an int64 tensor holding the u64
+    bits. On a card one `kmer_values` launch computes it from the positions
+    tensor as the sketch left it, on the current stream: no host sync and
+    no upload. On the CPU the plain version takes the positions in blocks
+    of chunked.PIPELINE_CHUNK_WINDOWS, which bounds its memory as the
+    chunked route bounds the sketch's."""
+    from . import chunked, device_values  # both import this module
+
+    pos = res[0] if isinstance(res, tuple) else res
+    block = chunked.PIPELINE_CHUNK_WINDOWS if chars.device.type == "cpu" else pos.numel()
+    with span("values"):
+        vals = [_u64(device_values.kmer_values_limbs(chars, pos[s:s + block], k, canonical,
+                                                     byte_codes))
+                for s in range(0, max(pos.numel(), 1), max(block, 1))]
+        vals = vals[0] if len(vals) == 1 else torch.cat(vals)
+    return (*res, vals) if isinstance(res, tuple) else (res, vals)
+
+
+def _u64(limbs: torch.Tensor) -> torch.Tensor:
+    """(m, 1 or 2) u32 limbs, low first, as int64 holding the u64 values."""
+    if limbs.shape[1] == 2:  # the little-endian u64
+        return limbs.view(torch.int64).view(-1)
+    return limbs[:, 0].to(torch.int64) & 0xFFFF_FFFF
 
 
 def fused_sketch(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,

@@ -12,7 +12,9 @@ record through `ops.backend.sketch_records` on `--device` (the Hopper
 kernels on a CUDA card, their plain versions on the CPU), computes the
 values where it sketched (`record_values`), and prints the times of its
 stages to standard error: CUDA set-up and the kernel library's load (on a
-card), parse, sketch, values and the .npz write.
+card), parse, sketch, values and the .npz write. The three host steps are
+the spans `smt.fasta parse`, `smt.record values` (a record's) and
+`smt.write npz` in a recording profiler (`utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def main(argv: list[str] | None = None) -> int:
     from .ops import _build, backend, pipeline
     from .seq.fasta import read_fasta
     from .utils.device import require_cuda
+    from .utils.profiling import span
 
     def log(msg):
         print(msg, file=sys.stderr)
@@ -77,7 +80,8 @@ def main(argv: list[str] | None = None) -> int:
         _build.library()
         log(f"CUDA set-up {t1 - t0:.2f}s, kernel library load {time.perf_counter() - t1:.2f}s")
     t0 = time.perf_counter()
-    recs = read_fasta(args.fasta)
+    with span("fasta parse"):
+        recs = read_fasta(args.fasta)
     t1 = time.perf_counter()
     total_bp = sum(len(r) for r in recs)
     log(f"parsed {len(recs)} records, {total_bp / 1e6:.1f} Mbp in {t1 - t0:.2f}s")
@@ -93,13 +97,15 @@ def main(argv: list[str] | None = None) -> int:
         out[f"{rec.name}/positions"] = pos
         total_pos += pos.size
         if args.values and mode == pipeline.MODE_MINIMIZERS:
-            out[f"{rec.name}/values"] = record_values(rec.codes, pos, args.k, args.canonical,
-                                                      device)
+            with span("record values"):
+                out[f"{rec.name}/values"] = record_values(rec.codes, pos, args.k, args.canonical,
+                                                          device)
     t3 = time.perf_counter()
     log(f"sketched {total_pos} positions in {t2 - t1:.2f}s "
         f"({total_bp / max(t2 - t1, 1e-9) / 1e9:.2f} Gbp/s wall)"
         + (f", values {t3 - t2:.2f}s" if args.values else ""))
-    np.savez_compressed(args.out, **out)
+    with span("write npz"):
+        np.savez_compressed(args.out, **out)
     log(f"wrote {args.out} in {time.perf_counter() - t3:.2f}s")
     return 0
 
