@@ -12,9 +12,11 @@ record through `ops.backend.sketch_records` on `--device` (the Hopper
 kernels on a CUDA card, their plain versions on the CPU), computes the
 values where it sketched (`record_values`), and prints the times of its
 stages to standard error: CUDA set-up and the kernel library's load (on a
-card), parse, sketch, values and the .npz write. The three host steps are
-the spans `smt.fasta parse`, `smt.record values` (a record's) and
-`smt.write npz` in a recording profiler (`utils.profiling.span`).
+card), parse, sketch, values and the .npz write. The .npz is the file
+`np.savez_compressed` writes, deflated in blocks on every CPU the process
+may use (`utils.npz.savez_compressed`). The three host steps are the spans
+`smt.fasta parse`, `smt.record values` (a record's) and `smt.write npz` in
+a recording profiler (`utils.profiling.span`).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ def main(argv: list[str] | None = None) -> int:
     from .ops import _build, backend, pipeline
     from .seq.fasta import read_fasta
     from .utils.device import require_cuda
+    from .utils.npz import savez_compressed
     from .utils.profiling import span
 
     def log(msg):
@@ -105,8 +108,9 @@ def main(argv: list[str] | None = None) -> int:
         f"({total_bp / max(t2 - t1, 1e-9) / 1e9:.2f} Gbp/s wall)"
         + (f", values {t3 - t2:.2f}s" if args.values else ""))
     with span("write npz"):
-        np.savez_compressed(args.out, **out)
-    log(f"wrote {args.out} in {time.perf_counter() - t3:.2f}s")
+        w = savez_compressed(args.out, out)
+    log(f"wrote {w.path} in {time.perf_counter() - t3:.2f}s: {w.raw_bytes / 1e6:.1f} MB deflated "
+        f"to {w.deflated_bytes / 1e6:.1f} MB in {w.blocks} blocks on {w.workers} workers")
     return 0
 
 

@@ -20,10 +20,11 @@ host and card, by direction and host memory ("h2d pageable", "h2d pinned",
 on the CPU, where nothing crosses a bus, so the CPU tests hold the counts of
 each route; where the CPU takes another route, it counts that route's (the
 short path's plain kernels count `totals readback` and pageable bytes, its
-graph on a card `short wait` and pinned ones). `PROFILED` holds what the
-calls made while a profiler recorded counted inside the port's spans, and
-the seconds in each span: only
-the benchmark's readers read it (ROADMAP A2c takes it out). Like
+graph on a card `short wait` and pinned ones). `DEFLATE` counts the
+blocks, workers and bytes of the compressed .npz writes (`utils/npz.py`,
+`count_deflate`). `PROFILED` holds what the calls made while a profiler
+recorded counted inside the port's spans, and the seconds in each span:
+only the benchmark's readers read it (ROADMAP A2c takes it out). Like
 `ops.fused.LAUNCHES` they take no lock: calls from several threads at once
 may lose a count."""
 
@@ -44,10 +45,13 @@ except ImportError:  # an older PyTorch: the public annotation, ~13 us a span
 SPAN_PREFIX = "smt."
 SYNCS: collections.Counter = collections.Counter()  # site -> host waits on the card
 BUS_BYTES: collections.Counter = collections.Counter()  # kind -> bytes moved
-# while a profiler recorded: "syncs" and "bus_bytes" as above, "span_s"
-# seconds by span name (without the prefix)
+# the compressed .npz writes (utils/npz.py): "blocks" deflated, "workers"
+# (the pool of each write, summed), "bytes in" and "bytes out" of deflate
+DEFLATE: collections.Counter = collections.Counter()
+# while a profiler recorded: "syncs", "bus_bytes" and "deflate" as above,
+# "span_s" seconds by span name (without the prefix)
 PROFILED = {"syncs": collections.Counter(), "bus_bytes": collections.Counter(),
-            "span_s": collections.Counter()}
+            "deflate": collections.Counter(), "span_s": collections.Counter()}
 recording = torch._C._autograd._profiler_enabled  # a torch.profiler session records
 _OFF = contextlib.nullcontext()
 _open_spans = 0  # spans open in a recording profiler
@@ -148,6 +152,14 @@ def count_bytes(kind: str, nbytes: int) -> None:
     BUS_BYTES[kind] += nbytes
     if _open_spans:
         PROFILED["bus_bytes"][kind] += nbytes
+
+
+def count_deflate(counts: dict) -> None:
+    """One compressed write's blocks, workers and bytes in and out
+    (DEFLATE); no bus traffic, so never in BUS_BYTES."""
+    DEFLATE.update(counts)
+    if _open_spans:
+        PROFILED["deflate"].update(counts)
 
 
 class _Span:

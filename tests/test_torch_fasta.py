@@ -10,6 +10,7 @@ import gzip
 import os
 import subprocess
 import sys
+import zipfile
 
 import numpy as np
 import pytest
@@ -124,6 +125,8 @@ def test_sketch_fasta_cli_vs_jax(args, tmp_path):
     amb = [r.ambiguous for r in recs] if "--skip-ambiguous" in args else None
     want = jbackend.sketch_records([r.codes for r in recs], 15, 9, NtHasher(15, canonical),
                                    mode=mode, ambiguous=amb, dna=True)
+    with zipfile.ZipFile(out) as z:
+        assert z.testzip() is None
     got = np.load(out)
     keys = [f"{r.name}/positions" for r in recs]
     if "--values" in args:
