@@ -82,7 +82,7 @@ peak device memory:
   each run's wall split into stages, and each kernel against its plain
   version on its widest launch, bounded over the windows its reads own;
 - Builder.run(device="cpu") of the 1e8 bases in a process of its own, on
-  the bounded CPU route (spans of 2^24 windows, ops/chunked.py) and as one
+  the bounded CPU route (spans of 2^24 windows, ops/spans.py) and as one
   launch of the plain version: wall and peak RSS of each, both equal to
   the card's positions.
 Then the paths of the last slices:
@@ -694,7 +694,7 @@ def _long_sequence(ctx):
 
     import simd_minimizers_tpu_torch as smt
     from simd_minimizers_tpu_torch import convert
-    from simd_minimizers_tpu_torch.ops import fused, pipeline
+    from simd_minimizers_tpu_torch.ops import fused, pipeline, spans
 
     dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
     l = K + W - 1
@@ -704,17 +704,17 @@ def _long_sequence(ctx):
     seq = smt.PackedSeq(rng.integers(0, 256, N_LONG // 4, dtype=np.uint8), 0, N_LONG)
     print(f"  input: {N_LONG // 4} random packed bytes ({time.perf_counter() - t:.2f} s)")
     b = smt.canonical_minimizers(K, W)
-    spans = len(fused.span_bounds(N_LONG, l, fused.SPAN_CHARS))
+    nspans = len(spans.span_bounds(N_LONG, l, spans.SPAN_CHARS))
     out, wall, launched, peak = _main_path(lambda: b.run(seq, device=dev))
     instance = fused.instance_name(True, pipeline.MODE_MINIMIZERS, False)
-    _expect_launches("long sequence", launched, instance, spans)
+    _expect_launches("long sequence", launched, instance, nspans)
     rec.tally(launched, instance, LONG_VARIANT)
     pos = out.positions
     nw = N_LONG - l + 1
     steps = np.diff(pos.astype(np.int64))
     back = steps[steps <= 0]
     density = pos.size / nw
-    print(f"  {pos.size} positions in {spans} spans; wall {wall * 1e3:.1f} ms "
+    print(f"  {pos.size} positions in {nspans} spans; wall {wall * 1e3:.1f} ms "
           f"({N_LONG / wall / 1e9:.3f} Gbp/s); peak extra device memory {peak:.1f} MiB; "
           f"density {density:.4f}; max position {int(pos.max())}; {note}")
     if pos.dtype != np.uint32 or int(pos.max()) >= N_LONG or int(pos.max()) < LONG_CHECK[1]:
@@ -751,7 +751,7 @@ def _long_sequence(ctx):
     words = convert.packed_words(seq, dev)
     h = b._resolved_hasher()
     for budget in (0, 4 << 30):
-        t = _median_ms(lambda: fused.sketch_long(words, N_LONG, K, W, h, wave_bytes=budget),
+        t = _median_ms(lambda: spans.sketch_long(words, N_LONG, K, W, h, wave_bytes=budget),
                        3, 1, 1)
         print(f"  sketch_long kernel path ({'eager' if not budget else 'waves of 4 GiB'}): "
               f"{t[0]:.2f} ms ({t[1]:.2f}..{t[2]:.2f}; {t[0] * 1e6 / N_LONG:.5f} ns/char); "
@@ -764,7 +764,7 @@ def _long_sequence(ctx):
     del out, pos
     torch.cuda.empty_cache()
     ops = _tiles_ops_per_window(K, True, "nt", False, False)
-    for s, m in fused.span_bounds(N_LONG, l, fused.SPAN_CHARS)[-2:]:
+    for s, m in spans.span_bounds(N_LONG, l, spans.SPAN_CHARS)[-2:]:
         kt = _tiles_check(rec, instance + LONG_VARIANT,
                           (convert.span(words, s, s + m, 4), m, K, W, tables, rot, canonical,
                            pipeline.MODE_MINIMIZERS, None), {"offset": s}, ops,
@@ -783,20 +783,20 @@ def _long_sweep(ctx, chars, plane):
 
     import simd_minimizers_tpu_torch as smt
     from simd_minimizers_tpu_torch import convert
-    from simd_minimizers_tpu_torch.ops import fused, pipeline
+    from simd_minimizers_tpu_torch.ops import fused, pipeline, spans
 
     dev, rec = ctx["dev"], ctx["rec"]
     span = SWEEP_SPAN
-    spans = len(fused.span_bounds(N, K + W - 1, span))
-    print(f"long sweep: every mode in {spans} spans of {span} chars over {N} bases:")
+    nspans = len(spans.span_bounds(N, K + W - 1, span))
+    print(f"long sweep: every mode in {nspans} spans of {span} chars over {N} bases:")
     for mode in pipeline.MODES:
         for canonical in (True, False):
             for amb in (None, plane):
                 h = smt.NtHasher(K, canonical=canonical)
-                res, wall, launched, _ = _main_path(lambda: fused.sketch_long(
+                res, wall, launched, _ = _main_path(lambda: spans.sketch_long(
                     chars, N, K, W, h, mode, amb, span_chars=span))
                 instance = fused.instance_name(canonical, mode, amb is not None)
-                _expect_launches(f"sweep {instance}", launched, instance, spans)
+                _expect_launches(f"sweep {instance}", launched, instance, nspans)
                 rec.tally(launched, instance, "")
                 (kind, can, rot), tables = convert.hasher_tensors(h, dev)
                 args = (chars, N, K, W, tables, rot, can, mode, amb)
@@ -811,7 +811,7 @@ def _long_sweep(ctx, chars, plane):
                 print(f"  {instance}: {got[0].numel()} values, spans == one launch == plain; "
                       f"wall {wall * 1e3:.2f} ms")
                 if mode == pipeline.MODE_SUPERKMERS and amb is not None:
-                    m = fused.span_bounds(N, K + W - 1, span)[0][1]
+                    m = spans.span_bounds(N, K + W - 1, span)[0][1]
                     _tiles_check(rec, instance, (chars[:-(-m // 4)], m, K, W, tables, rot, can,
                                                  mode, amb[:-(-m // 8)]), {},
                                  _tiles_ops_per_window(K, can, "nt", False, True))
@@ -849,7 +849,7 @@ def _genome(ctx):
 
     import simd_minimizers_tpu_torch as smt
     from simd_minimizers_tpu_torch import convert
-    from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline
+    from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline, spans
     from simd_minimizers_tpu_torch.tools.fasta_ingest import GRCH38, N_CONTIGS
 
     dev, rec, note = ctx["dev"], ctx["rec"], ctx["card_note"]
@@ -869,7 +869,7 @@ def _genome(ctx):
 
     out, wall, launched, peak = _main_path(run)
     small = [i for i, c in enumerate(codes) if l <= c.size <= BATCH_MAX_BP]
-    n_launch = (sum(len(fused.span_bounds(c.size, l, fused.SPAN_CHARS))
+    n_launch = (sum(len(spans.span_bounds(c.size, l, spans.SPAN_CHARS))
                     for i, c in enumerate(codes) if i not in set(small))
                 + len({batch._stride_bucket(codes[i].size + 1) for i in small}))
     instance = fused.instance_name(True, pipeline.MODE_MINIMIZERS, True)
@@ -903,7 +903,7 @@ def _genome(ctx):
     for i in big:
         chars = convert.code_bytes(codes[i], dev)
         amb = convert.ambiguity_plane(masks[i], codes[i].size, dev)
-        for s, n in fused.span_bounds(codes[i].size, l, fused.SPAN_CHARS):
+        for s, n in spans.span_bounds(codes[i].size, l, spans.SPAN_CHARS):
             launches.append((chars[s:s + n], n, amb[s // 8:-(-(s + n) // 8)], s))
     batch_launches = [(c, n, p, 0) for _, _, c, n, p in batch.launches(
         [codes[i] for i in small], [masks[i] for i in small], l, dev)]
@@ -1180,7 +1180,7 @@ def _read_batches(ctx):
 
 
 # One Builder.run of the 1e8 bases on the CPU, in a process of its own:
-# argv seed, n, k, w, and "chunked" (the route a CPU tensor takes) or
+# argv seed, n, k, w, and "chunked" (the spans a CPU tensor takes) or
 # "whole" (one launch of the plain version); prints its wall, its resident
 # memory before the run (/proc/self/statm), its peak (resource.getrusage's
 # ru_maxrss, and the largest of statm read every 5 ms during the run), and
@@ -1191,13 +1191,13 @@ sys.modules["jax"] = None
 sys.modules["simd_minimizers_tpu"] = None
 import numpy as np
 import simd_minimizers_tpu_torch as smt
-from simd_minimizers_tpu_torch.ops import chunked
+from simd_minimizers_tpu_torch.ops import spans
 def rss_mib():
     with open("/proc/self/statm") as f:
         return int(f.read().split()[1]) * resource.getpagesize() / 2**20
 seed, n, k, w = map(int, sys.argv[1:5])
 if sys.argv[5] == "whole":
-    chunked.PIPELINE_CHUNK_WINDOWS = 1 << 40
+    spans.PIPELINE_CHUNK_WINDOWS = 1 << 40
 seq = smt.PackedSeqVec.random(n, np.random.default_rng(seed))
 before = rss_mib()
 sampled, done = [before], threading.Event()

@@ -27,7 +27,7 @@ import torch
 
 from . import convert
 from .hashers import KmerHasher, NtHasher
-from .ops import backend, device_values, fused, oracle, pipeline, values
+from .ops import backend, device_values, oracle, pipeline, spans, values
 from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, as_seq
 from .utils.profiling import span, stage
 
@@ -172,7 +172,7 @@ class Builder:
         seq = as_seq(seq)
         text = isinstance(seq, GenericSeq)
         n = len(seq)
-        fused.check_sequence_length(n)  # before anything crosses the bus
+        spans.check_sequence_length(n)  # before anything crosses the bus
         if text:
             chars = convert.text_bytes(seq, device)
         elif isinstance(seq, (PackedSeq, AsciiSeq)):

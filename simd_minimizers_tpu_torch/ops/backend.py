@@ -1,7 +1,9 @@
 """Backend dispatch on the device of the input.
 
 Counterpart of `simd_minimizers_tpu/ops/backend.py` (`sketch`,
-`sketch_records`, `sketch_batch`): the kernel wrappers (`ops/fused.py`)
+`sketch_records`, `sketch_batch`): the span driver (`ops/spans.py`) cuts
+sequences into launches and the batch engine (`ops/batch.py`) packs many
+small ones into slots; below both, the kernel wrappers (`ops/fused.py`)
 send a CUDA tensor to the Hopper kernels and a CPU tensor to their plain
 versions (`ops/pipeline.py`). There is no other route: what the kernels do
 not cover (geometry) raises `NotImplementedError` in the wrapper, on both
@@ -14,13 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import convert
 from ..hashers import KmerHasher
 from ..utils.profiling import span, stage
-from . import batch, chunked, fused, pipeline
+from . import batch, pipeline, spans
 
-# sequences of this many chars or more stream through spans (fused.sketch_long)
-LONG_SEQUENCE_CHARS = 1 << 30
 # sketch_records routes >= this many small records (each of at most
 # batch_max_bp chars) through the batch engine: one launch per stride
 # bucket for the whole set instead of a launch and a download per record
@@ -57,33 +56,23 @@ def sketch(chars: torch.Tensor, n: int, k: int, w: int, hasher: KmerHasher,
     convert.packed_words, or with `text` the bytes of convert.text_bytes;
     skipping the windows that hold a char flagged in the 1-bit plane
     `ambiguous` (convert.ambiguity_plane); for super-k-mers (positions,
-    first-window indices), with or without a plane. On a CUDA tensor,
-    sequences of 2^30 chars or more stream through `fused.sketch_long` in
-    2^29-char spans; on a CPU tensor, sequences of more than
-    chunked.PIPELINE_CHUNK_WINDOWS windows stream in spans of that many
-    windows (`chunked.sketch`), which bounds the plain version's memory.
+    first-window indices), with or without a plane. One launch up to the
+    span size, spans of it past that (`spans.sketch_long`: 2^29 chars on a
+    card; on a CPU tensor spans.PIPELINE_CHUNK_WINDOWS windows, which bounds
+    the plain version's memory).
 
     With `values` (2-bit minimizers and super-k-mers, k <= 32; anything
     else raises NotImplementedError) one more plane follows: each kept
     k-mer's 2-bit value, canonical where the hasher is, an int64 tensor
     holding the u64 bits, computed by `kmer_values` on chars.device from
     `chars` and the positions before anything leaves the card
-    (`fused.with_values`)."""
+    (`spans.with_values`)."""
     with span("sketch"):
         _check_parameters(k, w, hasher, mode)
         if values:
-            fused.check_values(k, mode, text)
-        if chars.device.type == "cpu" and n - (k + w - 1) + 1 > chunked.PIPELINE_CHUNK_WINDOWS:
-            res = chunked.sketch(chars, n, k, w, hasher, mode, ambiguous, text=text)
-        elif n >= LONG_SEQUENCE_CHARS:
-            res = fused.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
-        else:
-            (kind, canonical, rot_offset), tables = convert.hasher_tensors(hasher, chars.device,
-                                                                           text)
-            with span("kernels"):
-                res = fused.fused_sketch(chars, n, k, w, tables, rot_offset, canonical, mode,
-                                         ambiguous, text=text, kind=kind)
-        return fused.with_values(res, chars, k, hasher.canonical) if values else res
+            spans.check_values(k, mode, text)
+        res = spans.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
+        return spans.with_values(res, chars, k, hasher.canonical) if values else res
 
 
 def sketch_records(records, k: int, w: int, hasher: KmerHasher,
@@ -99,25 +88,24 @@ def sketch_records(records, k: int, w: int, hasher: KmerHasher,
 
     At least RECORDS_BATCH_MIN_COUNT records of l to `batch_max_bp` chars go
     through the batch engine (one launch per stride bucket); the others
-    through `fused.sketch_records` (span launches in waves of `wave_bytes`).
+    through `spans.sketch_records` (span launches in waves of `wave_bytes`).
     The keywords are the JAX package's environment knobs
     SMTPU_RECORDS_BATCH_MAX_BP and SMTPU_RECORDS_WAVE_BYTES, with their
     defaults.
     """
     with span("sketch_records"):
         l = k + w - 1
-        amb = fused.record_masks(records, ambiguous, mode)
+        amb = spans.record_masks(records, ambiguous, mode)
         _check_parameters(k, w, hasher, mode)
-        span_kw = {"dna": dna, "device": device, "span_chars": fused.SPAN_CHARS,
-                   "wave_bytes": wave_bytes}
+        span_kw = {"dna": dna, "device": device, "wave_bytes": wave_bytes}
         small = [i for i, r in enumerate(records) if l <= len(r) <= batch_max_bp]
         if len(small) < RECORDS_BATCH_MIN_COUNT:
-            return fused.sketch_records_checked(records, k, w, hasher, mode, amb, **span_kw)
+            return spans.sketch_records(records, k, w, hasher, mode, amb, **span_kw)
         out = [None] * len(records)
         small_set = set(small)
         big = [i for i in range(len(records)) if i not in small_set]
         if big:
-            for i, res in zip(big, fused.sketch_records_checked(
+            for i, res in zip(big, spans.sketch_records(
                     [records[i] for i in big], k, w, hasher, mode, [amb[i] for i in big],
                     **span_kw)):
                 out[i] = res

@@ -1,15 +1,15 @@
 """The Hopper minimizer kernels' wrappers, their launch counts and their
-geometry gate, and the drivers that split long sequences and many records
-into launches.
+geometry gate.
 
 Counterpart of `simd_minimizers_tpu/ops/fused.py` (`fused_supported`,
-`_invoke_pallas`, `_fused_launch`, `_fused_harvest`, `fused_sketch`,
-`_LaunchWave`, `sketch_long`, `sketch_records`). The kernels are
-`csrc/minimizers.cu` and `csrc/top16.cu`; see their headers for the
-design. They read the plain 2-bit byte stream, 2-bit codes one per byte,
-or the raw text bytes, so the TPU's row- and byte-striped repacks have no
-counterpart here. `ascii_slots` (`csrc/slots.cu`) lays a batch's ASCII
-read matrix into the batch engine's slots on the card (ops/batch.py).
+`_invoke_pallas`, `_fused_launch`, `_fused_harvest`, `fused_sketch`); the
+drivers that cut long sequences and many records into launches are in
+`ops/spans.py`. The kernels are `csrc/minimizers.cu` and `csrc/top16.cu`;
+see their headers for the design. They read the plain 2-bit byte stream,
+2-bit codes one per byte, or the raw text bytes, so the TPU's row- and
+byte-striped repacks have no counterpart here. `ascii_slots`
+(`csrc/slots.cu`) lays a batch's ASCII read matrix into the batch engine's
+slots on the card (ops/batch.py).
 
 `fused_sketch` is `_fused_launch` (`minimizer_tiles`, `tile_offsets`; no
 host sync) then `_fused_harvest` (the total, `tile_append`): three
@@ -32,32 +32,25 @@ byte, or text), the hasher (the nt / mul fold over per-char tables, or
 antilex) and the u32 offset of the launch's first char are block-uniform
 arguments of every instance.
 
-The drivers keep the JAX package's contracts (spans overlap by l - 1 chars
-and merge at their seams exactly, syncmer spans concatenate, positions are
-u32) but not its TPU design: the input is uploaded once and every span is
-a view of it that starts at a multiple of TILE windows (so on a byte of the
-2-bit stream and of the 1-bit plane), launches need no grid buckets, and a
-record's results come down through pinned host memory on a side stream
-while the next launches run.
+This module imports nothing above it: no driver, entry point or
+`parallel` module (tests/test_torch_api.py holds the layering).
 """
+
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from .. import convert
-from ..parallel.multihost import concat, merge_adjacent_shards
 from ..utils.device import require_cuda
-from ..utils.profiling import count_bytes, count_sync, span, stage
+from ..utils.profiling import count_bytes, count_sync, span
 from . import _build, pipeline
 
 TILE = 4096  # windows per thread block; csrc/minimizers.cu TILE
 THREADS = 256  # threads per block of minimizer_tiles; csrc/minimizers.cu THREADS
 SCAN_BLOCK = 1024  # counts per block of tile_offsets; csrc/minimizers.cu SCAN_BLOCK
-SPAN_CHARS = 1 << 29  # chars per span of a long sequence or record (the JAX package's)
 # dynamic shared memory one block may use on Hopper: 227 KiB less the
 # kernel's static shared memory (the scan's warp sums, 32 B, and the 2-bit
 # fold's rolling values, 128 B)
@@ -98,7 +91,6 @@ LAUNCHES = {instance_name(c, m, a): 0
 LAUNCHES.update({"kmer_top16": 0, "tile_offsets": 0, "tile_append": 0, "ascii_slots": 0,
                  "kmer_values": 0})
 MAX_LAUNCH_CHARS = 1 << 31  # chars of one launch: in-kernel values are below 2^31
-MAX_SEQUENCE_CHARS = 1 << 32  # chars of one sequence: positions are u32
 
 _ready_devices: set[int] = set()
 # per card: tile_offsets' ticket and finished-block counters and one
@@ -618,45 +610,6 @@ def _fused_harvest(handles, mode: str, cnt: int | None = None):
     return (out[0], out[1]) if mode == pipeline.MODE_SUPERKMERS else out
 
 
-def check_values(k: int, mode: str, text: bool) -> None:
-    """Raise NotImplementedError where a sketch's values have no route:
-    syncmers (their values would be of (k + w - 1)-mers at window indices),
-    text (8-bit chars) and k > 32 (the values are u64)."""
-    if mode in pipeline.SYNCMER_MODES or text or k > 32:
-        raise NotImplementedError(
-            f"values=True covers 2-bit minimizers and super-k-mers at k <= 32, not {mode} "
-            f"of {'text' if text else '2-bit DNA'} at k={k} (Output computes the others)")
-
-
-def with_values(res, chars: torch.Tensor, k: int, canonical: bool, byte_codes: bool = False):
-    """`res` (positions, or (positions, first-window indices)) with one more
-    plane behind it: the 2-bit value of the k-mer (k <= 32) at each
-    position of the sequence in `chars`, canonical the least of the forward
-    and the reverse complement value, as an int64 tensor holding the u64
-    bits. On a card one `kmer_values` launch computes it from the positions
-    tensor as the sketch left it, on the current stream: no host sync and
-    no upload. On the CPU the plain version takes the positions in blocks
-    of chunked.PIPELINE_CHUNK_WINDOWS, which bounds its memory as the
-    chunked route bounds the sketch's."""
-    from . import chunked, device_values  # both import this module
-
-    pos = res[0] if isinstance(res, tuple) else res
-    block = chunked.PIPELINE_CHUNK_WINDOWS if chars.device.type == "cpu" else pos.numel()
-    with span("values"):
-        vals = [_u64(device_values.kmer_values_limbs(chars, pos[s:s + block], k, canonical,
-                                                     byte_codes))
-                for s in range(0, max(pos.numel(), 1), max(block, 1))]
-        vals = vals[0] if len(vals) == 1 else torch.cat(vals)
-    return (*res, vals) if isinstance(res, tuple) else (res, vals)
-
-
-def _u64(limbs: torch.Tensor) -> torch.Tensor:
-    """(m, 1 or 2) u32 limbs, low first, as int64 holding the u64 values."""
-    if limbs.shape[1] == 2:  # the little-endian u64
-        return limbs.view(torch.int64).view(-1)
-    return limbs[:, 0].to(torch.int64) & 0xFFFF_FFFF
-
-
 def fused_sketch(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tensor | None,
                  rot_offset: int, canonical: bool, mode: str = pipeline.MODE_MINIMIZERS,
                  ambiguous: torch.Tensor | None = None, *, text: bool = False,
@@ -675,242 +628,3 @@ def fused_sketch(chars: torch.Tensor, n: int, k: int, w: int, tables: torch.Tens
     return _fused_harvest(_fused_launch(chars, n, k, w, tables, rot_offset, canonical, mode,
                                         ambiguous, text=text, kind=kind, offset=offset,
                                         byte_codes=byte_codes), mode)
-
-
-class _LaunchWave:
-    """Launches queued without a host sync and harvested in waves.
-
-    Counterpart of the JAX package's `_LaunchWave`: a wave is flushed before
-    a launch that would take its device footprint past `budget` bytes or
-    make it 129 launches, so in-flight scratch stays bounded; a flush
-    fetches every launch's total in one stacked copy and hands each
-    harvested result (device tensors) to `sink(key, result)`. A budget of 0
-    is the eager schedule: each launch is harvested before the next one.
-    """
-
-    MAX_LAUNCHES = 128
-
-    def __init__(self, mode: str, sink, budget: int):
-        self.mode = mode
-        self.sink = sink
-        self.budget = budget
-        self.wave = []  # (key, handles)
-        self.bytes = 0
-
-    @staticmethod
-    def launch_footprint(n: int, l: int, mode: str) -> int:
-        """Device bytes a launch over n chars holds until its harvest: its
-        scratch and, at most as large, its output, per plane."""
-        windows = -(-max(n - l + 1, 0) // TILE) * TILE
-        return 2 * 4 * windows * (2 if mode == pipeline.MODE_SUPERKMERS else 1)
-
-    def submit(self, key, footprint: int, launch) -> None:
-        """Flush first if needed, then enqueue `launch()` (its handles)."""
-        if self.wave and (self.bytes + footprint > self.budget
-                          or len(self.wave) >= self.MAX_LAUNCHES):
-            self.flush()
-        with stage("kernels"):
-            self.wave.append((key, launch()))
-        self.bytes += footprint
-
-    def flush(self) -> None:
-        if not self.wave:
-            return
-        with stage("kernels"), span("totals readback"):
-            count_sync("wave totals")
-            count_bytes("d2h pageable", 4 * len(self.wave))
-            totals = torch.stack([h[2][-1] for _, h in self.wave]).tolist()
-        for (key, handles), cnt in zip(self.wave, totals):
-            with stage("kernels"):
-                res = _fused_harvest(handles, self.mode, cnt)
-            self.sink(key, res)
-        self.wave.clear()
-        self.bytes = 0
-
-
-def span_bounds(n: int, l: int, span_chars: int) -> list[tuple[int, int]]:
-    """(first window, chars) of each launch over a sequence of n chars: one
-    launch if n <= span_chars, else spans of at most span_chars chars that
-    overlap by l - 1, each owning a multiple of TILE windows (the last
-    fewer), so each starts on a byte of the 2-bit stream and of the 1-bit
-    plane. The seam merge makes the result independent of the split."""
-    nw = n - l + 1
-    if nw <= 0:
-        return []
-    if n <= span_chars:
-        return [(0, n)]
-    step = max((span_chars - (l - 1)) // TILE, 1) * TILE
-    return [(s, min(s + step, nw) - 1 + l - s) for s in range(0, nw, step)]
-
-
-def check_sequence_length(n: int) -> None:
-    if n >= MAX_SEQUENCE_CHARS:  # the JAX package's check (sketch_long)
-        raise AssertionError("positions are u32: 2^32 chars max per sequence")
-
-
-class _SeamChars:
-    """Chars of a buffer as the seam merge reads them: `view[a:b]` is a
-    uint8 numpy array of chars [a, b) of `buf` (a numpy array or a tensor
-    on any device, copied to the host): the 0/1 flags of a 1-bit plane
-    (`per` = 8), the 2-bit codes of a 2-bit stream (4), or the bytes (1),
-    of which code bytes keep their low two bits as the kernel does."""
-
-    def __init__(self, buf, per: int, text: bool = False):
-        self.buf, self.per, self.text = buf, per, text
-
-    def __getitem__(self, sl: slice) -> np.ndarray:
-        a, b = sl.start, sl.stop
-        raw = self.buf[a // self.per:-(-b // self.per)]
-        if isinstance(raw, torch.Tensor):
-            with span("seam chars"):
-                count_sync("seam chars")
-                count_bytes("d2h pageable", raw.numel())
-                raw = raw.cpu().numpy()
-        else:
-            raw = np.asarray(raw, np.uint8)
-        if self.per == 1:
-            return raw if self.text else raw & 3
-        bits = np.unpackbits(raw, bitorder="little")
-        vals = bits if self.per == 8 else bits[0::2] | bits[1::2] << 1
-        return vals[a % self.per:a % self.per + b - a]
-
-
-def _merge_spans(parts, starts, mode, k, w, hasher, codes, ambiguous):
-    """The JAX package's span merge: syncmer spans concatenate; the others
-    drop a span's first value where the seam dedups it, with the index plane
-    of super-k-mers in lockstep. parts are device tensors or numpy arrays."""
-    if len(parts) == 1:
-        return parts[0]
-    if mode in pipeline.SYNCMER_MODES:
-        return concat(parts)
-    if mode == pipeline.MODE_SUPERKMERS:
-        return merge_adjacent_shards([p[0] for p in parts], starts, codes, k, w, hasher,
-                                     ambiguous, aux=[p[1] for p in parts])
-    return merge_adjacent_shards(parts, starts, codes, k, w, hasher, ambiguous)
-
-
-def _submit_spans(wave: _LaunchWave, key, chars: torch.Tensor, n: int,
-                  plane: torch.Tensor | None, per: int, span_chars: int, k: int, w: int,
-                  tables, rot: int, canonical: bool, **kw) -> list[int]:
-    """Queue on `wave`, under `key`, one launch per span of a sequence of n
-    chars (`span_bounds`): a view of `chars` (`per` chars per byte) and of
-    the 1-bit `plane`, launched with its first char as the offset (`kw`:
-    minimizer_tiles' keywords). Returns the spans' first windows."""
-    l = k + w - 1
-    bounds = span_bounds(n, l, span_chars)
-    for s, m in bounds:
-        sub = convert.span(chars, s, s + m, per)
-        amb = None if plane is None else convert.span(plane, s, s + m, 8)
-        wave.submit(key, _LaunchWave.launch_footprint(m, l, wave.mode),
-                    lambda: _fused_launch(sub, m, k, w, tables, rot, canonical, wave.mode, amb,
-                                          offset=s, **kw))
-    return [s for s, _ in bounds]
-
-
-def sketch_long(chars: torch.Tensor, n: int, k: int, w: int, hasher,
-                mode: str = pipeline.MODE_MINIMIZERS, ambiguous: torch.Tensor | None = None, *,
-                text: bool = False, byte_codes: bool = False, span_chars: int = SPAN_CHARS,
-                wave_bytes: int = 0):
-    """`fused_sketch` of a sequence of up to 2^32 chars, in spans of at most
-    span_chars chars (`span_bounds`) that are views of `chars` and of the
-    plane `ambiguous`, each launched with its first char as the offset, then
-    merged at the seams (`merge_adjacent_shards`). Results stay on
-    chars.device as int32 tensors holding u32 bits. `wave_bytes` is the
-    launch wave's budget (0: eager, each span harvested before the next is
-    launched)."""
-    check_sequence_length(n)
-    l = k + w - 1
-    (kind, canonical, rot), tables = convert.hasher_tensors(hasher, chars.device, text)
-    kw = {"text": text, "kind": kind, "byte_codes": byte_codes}
-    if n <= span_chars or n < l:
-        return fused_sketch(chars, n, k, w, tables, rot, canonical, mode, ambiguous, **kw)
-    per = 1 if text or byte_codes else 4
-    parts = []
-    wave = _LaunchWave(mode, lambda _key, res: parts.append(res), wave_bytes)
-    starts = _submit_spans(wave, None, chars, n, ambiguous, per, span_chars, k, w, tables, rot,
-                           canonical, **kw)
-    wave.flush()
-    return _merge_spans(parts, starts, mode, k, w, hasher, _SeamChars(chars, per, text),
-                        None if ambiguous is None else _SeamChars(ambiguous, 8))
-
-
-def record_masks(records, ambiguous, mode: str) -> list:
-    """The per-record masks as a list aligned with `records` (None entries
-    allowed), with the JAX package's AssertionErrors for a list of another
-    length and for super-k-mers with a mask."""
-    masks = list(ambiguous) if ambiguous is not None else [None] * len(records)
-    if len(masks) != len(records):
-        raise AssertionError("ambiguous must align with records")
-    pipeline.assert_no_superkmer_ambiguity(mode, any(a is not None for a in masks))
-    return masks
-
-
-def sketch_records(records, k: int, w: int, hasher, mode: str = pipeline.MODE_MINIMIZERS,
-                   ambiguous=None, *, dna: bool | None = None,
-                   device: torch.device | str = "cuda", span_chars: int = SPAN_CHARS,
-                   wave_bytes: int = 4 << 30):
-    """Per-record results (positions, or (positions, super-k-mer indices);
-    record-local np.uint32; empty below one window) of many sequences of
-    uint8 codes (2-bit codes if `dna`, text bytes if not; None probes each
-    record), with the per-record masks `ambiguous` (None entries allowed).
-
-    Each record is uploaded once as bytes and cut into spans like
-    `sketch_long` (on the CPU spans of at most
-    chunked.PIPELINE_CHUNK_WINDOWS windows, which bound the plain version's
-    memory: ops/chunked.py); the launches of all records go through one
-    `_LaunchWave` of `wave_bytes` (default 4 GiB, the JAX package's
-    SMTPU_RECORDS_WAVE_BYTES), and each harvested span comes down through
-    pinned host memory on a side stream while the next launches run.
-    Bit-identical to sketching each record alone.
-    """
-    return sketch_records_checked(records, k, w, hasher, mode,
-                                  record_masks(records, ambiguous, mode), dna=dna,
-                                  device=device, span_chars=span_chars, wave_bytes=wave_bytes)
-
-
-def sketch_records_checked(records, k: int, w: int, hasher, mode: str, masks: list, *,
-                           dna: bool | None, device: torch.device | str, span_chars: int,
-                           wave_bytes: int):
-    """`sketch_records` with `masks` as `record_masks` returns them."""
-    l = k + w - 1
-    nrec = len(records)
-    device = require_cuda(device)
-    if device.type == "cpu":
-        from . import chunked  # chunked imports this module
-
-        span_chars = min(span_chars, chunked.span_chars(l))
-    copies = torch.cuda.Stream(device) if device.type == "cuda" else None
-    rec_parts = [[] for _ in range(nrec)]
-    wave = _LaunchWave(mode, lambda ri, res: rec_parts[ri].append(convert.Download(res, copies)),
-                       wave_bytes)
-    tables_for = {}
-    starts = [[] for _ in range(nrec)]
-    texts = [False] * nrec
-    for ri, rec in enumerate(records):
-        with span("record probe"):
-            codes = np.asarray(rec, dtype=np.uint8)
-            n = codes.shape[0]
-            check_sequence_length(n)
-            if n >= l:
-                texts[ri] = not (dna if dna is not None else convert.is_dna(codes))
-        if n < l:
-            continue
-        text = texts[ri]
-        if text not in tables_for:
-            tables_for[text] = convert.hasher_tensors(hasher, device, text)
-        (kind, canonical, rot), tables = tables_for[text]
-        chars = convert.code_bytes(codes, device)
-        plane = None if masks[ri] is None else convert.ambiguity_plane(masks[ri], n, device)
-        starts[ri] = _submit_spans(wave, ri, chars, n, plane, 1, span_chars, k, w, tables, rot,
-                                   canonical, text=text, kind=kind, byte_codes=not text)
-    wave.flush()
-    empty = np.zeros(0, np.uint32)
-    out = []
-    with stage("seam merge"):
-        for ri, rec in enumerate(records):
-            if not rec_parts[ri]:
-                out.append((empty, empty) if mode == pipeline.MODE_SUPERKMERS else empty)
-                continue
-            out.append(_merge_spans([d.result() for d in rec_parts[ri]], starts[ri], mode, k, w,
-                                    hasher, _SeamChars(rec, 1, texts[ri]), masks[ri]))
-    return out

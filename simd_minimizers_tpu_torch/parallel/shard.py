@@ -8,9 +8,9 @@ windows, as in the JAX package, and runs one `_fused_launch` over its
 halo'd span: a view of its device's upload of the codes (one upload per
 distinct device), launched with its first char as the kernel's offset, so
 its values come out sequence-global. The spans of one device are harvested
-together (`_LaunchWave`: one stacked fetch of their totals) and the host
-merges them at the seams exactly (`merge_adjacent_shards`) or, for
-syncmers, concatenates them.
+together (`spans.LaunchWave`: one stacked fetch of their totals) and the
+host merges them at the seams exactly, or for syncmers concatenates them
+(`spans.merge`).
 
 There is no second path: the JAX package's XLA `sharded_sketch` has no
 counterpart here, and `sharded_sketch` is `fused_sharded_sketch`. On
@@ -25,9 +25,8 @@ import torch.distributed as dist
 
 from .. import convert
 from ..hashers import KmerHasher
-from ..ops import fused, pipeline
+from ..ops import pipeline, spans
 from ..utils.device import require_cuda
-from .multihost import concat, merge_adjacent_shards
 
 
 def default_mesh(n_devices: int | None = None, local_only: bool = False,
@@ -80,11 +79,11 @@ def fused_sharded_sketch(codes_np: np.ndarray, k: int, w: int, hasher: KmerHashe
         raise AssertionError("open syncmers require odd w")
     if hasher.canonical and l % 2 != 1:
         raise AssertionError(f"window length l={l} must be odd to determine strand")
-    spans = _shard_spans(n, l, len(mesh))
+    bounds = _shard_spans(n, l, len(mesh))
     parts = [None] * len(mesh)
     waves = {}
     uploads = {}
-    for d, (dev, (s, m)) in enumerate(zip(mesh, spans)):
+    for d, (dev, (s, m)) in enumerate(zip(mesh, bounds)):
         if m == 0:  # no window left for this shard: no launch
             nothing = torch.zeros(0, dtype=torch.int32)
             parts[d] = (nothing, nothing) if mode == pipeline.MODE_SUPERKMERS else nothing
@@ -92,25 +91,17 @@ def fused_sharded_sketch(codes_np: np.ndarray, k: int, w: int, hasher: KmerHashe
         if dev not in uploads:
             (kind, canonical, rot), tables = convert.hasher_tensors(hasher, dev)
             uploads[dev] = (convert.code_bytes(codes_np, dev), kind, canonical, rot, tables)
-            waves[dev] = fused._LaunchWave(mode, lambda key, res: parts.__setitem__(key, res),
-                                           budget=1 << 62)
+            waves[dev] = spans.LaunchWave(mode, lambda key, res: parts.__setitem__(key, res),
+                                          budget=1 << 62)
         chars, kind, canonical, rot, tables = uploads[dev]
         plane = None if ambiguous_np is None else convert.ambiguity_plane(
             np.asarray(ambiguous_np[s:s + m]), m, dev)
-        waves[dev].submit(d, 0, lambda: fused._fused_launch(
-            chars[s:s + m], m, k, w, tables, rot, canonical, mode, plane, kind=kind,
-            offset=s, byte_codes=True))
+        waves[dev].launch(d, chars[s:s + m], m, k, w, tables, rot, canonical, plane, kind=kind,
+                          offset=s, byte_codes=True)
     for wave in waves.values():
         wave.flush()
     host = [convert.Download(p).result() for p in parts]
-    if mode in pipeline.SYNCMER_MODES:
-        # window indices: each shard owns a disjoint window range
-        return concat(host)
-    starts = [s for s, _ in spans]
-    if mode == pipeline.MODE_SUPERKMERS:
-        return merge_adjacent_shards([p[0] for p in host], starts, codes_np, k, w, hasher,
-                                     ambiguous_np, aux=[p[1] for p in host])
-    return merge_adjacent_shards(host, starts, codes_np, k, w, hasher, ambiguous_np)
+    return spans.merge(host, [s for s, _ in bounds], mode, k, w, hasher, codes_np, ambiguous_np)
 
 
 # the JAX package's XLA sharded path has no counterpart: one path serves

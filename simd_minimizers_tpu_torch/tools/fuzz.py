@@ -28,10 +28,10 @@ generator, `default_rng([S, i])`, so `--index I` re-runs config I alone:
 Each config goes through one entry point, in turn: `Builder.run` (with a
 mask on canonical minimizers `run_skip_ambiguous_windows`; on a third of
 the configs also `Output.values_u64` / `values_u128_limbs`), the span
-drivers `ops/fused.sketch_long` and `ops/fused.sketch_records` with small
+drivers `ops/spans.sketch_long` and `ops/spans.sketch_records` with small
 spans, `Builder.run_batch`, `parallel/shard.fused_sharded_sketch` and the
 multi-process seam merge (`multihost.local_shard_sketch` for each shard,
-then `multihost._merge_mode_shards`) over 1..9 shards of the one device,
+then `spans.merge`) over 1..9 shards of the one device,
 and `ShortSeqSketcher` (inputs up to its capacity, no mask). Every result
 is compared bit for bit with the port's oracle (`ops/oracle.py`:
 `selected_stream`, then `collect_and_dedup`, `collect_and_dedup_with_index`
@@ -63,7 +63,7 @@ import torch
 
 from .. import api, convert
 from ..hashers import AntiLexHasher, MulHasher, NtHasher
-from ..ops import fused, oracle, pipeline, values
+from ..ops import fused, oracle, pipeline, spans, values
 from ..ops.device_sketcher import ShortSeqSketcher
 from ..parallel import multihost, shard
 from ..seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeqVec
@@ -202,7 +202,7 @@ def _seams(cfg: Config, n: int) -> list[int]:
     if cfg.entry in ("shard", "multihost"):
         return [multihost.shard_bounds(n, cfg.l, cfg.shards, s)[0] for s in range(1, cfg.shards)]
     if cfg.entry in ("sketch_long", "sketch_records"):
-        return [s for s, _ in fused.span_bounds(n, cfg.l, cfg.span_chars)[1:]]
+        return [s for s, _ in spans.span_bounds(n, cfg.l, cfg.span_chars)[1:]]
     return []
 
 
@@ -324,12 +324,12 @@ def run_entry(cfg: Config, pieces, device: torch.device) -> list[tuple]:
         else:
             buf = convert.code_bytes(chars, device)
         plane = None if amb is None else convert.ambiguity_plane(amb, n, device)
-        res = fused.sketch_long(buf, n, k, w, h, mode, plane, text=text,
+        res = spans.sketch_long(buf, n, k, w, h, mode, plane, text=text,
                                 byte_codes=cfg.kind == "codes", span_chars=cfg.span_chars)
         return [_planes(res)]
     if cfg.entry == "sketch_records":
         masks = [a for _, a in pieces] if cfg.mask != "none" else None
-        res = fused.sketch_records([c for c, _ in pieces], k, w, h, mode, masks, dna=not text,
+        res = spans.sketch_records([c for c, _ in pieces], k, w, h, mode, masks, dna=not text,
                                    device=device, span_chars=cfg.span_chars)
         return [_planes(r) for r in res]
     if cfg.entry == "run_batch":
@@ -347,11 +347,7 @@ def run_entry(cfg: Config, pieces, device: torch.device) -> list[tuple]:
                                               mesh=[device], device=device.type)
                  for s in range(cfg.shards)]
         starts = [multihost.shard_bounds(n, l, cfg.shards, s)[0] for s in range(cfg.shards)]
-        if mode == pipeline.MODE_SUPERKMERS:
-            res = multihost._merge_mode_shards([p[0] for p in parts], starts, chars, k, w, h,
-                                               mode, amb, aux=[p[1] for p in parts])
-        else:
-            res = multihost._merge_mode_shards(parts, starts, chars, k, w, h, mode, amb)
+        res = spans.merge(parts, starts, mode, k, w, h, chars, amb)
         return [_planes(res)]
     if cfg.entry == "short":
         sk = ShortSeqSketcher(k, w, h, mode, device=device)

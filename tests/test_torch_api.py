@@ -219,7 +219,7 @@ def test_imports_without_jax(tmp_path):
         "import torch\n"
         "import simd_minimizers_tpu_torch as smt\n"
         "from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline, _build\n"
-        "from simd_minimizers_tpu_torch.ops import chunked, device_values, values\n"
+        "from simd_minimizers_tpu_torch.ops import device_values, spans, values\n"
         "from simd_minimizers_tpu_torch import native\n"
         "from simd_minimizers_tpu_torch.parallel import multihost, shard\n"
         "from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher\n"
@@ -231,7 +231,7 @@ def test_imports_without_jax(tmp_path):
         "recs = [smt.AsciiSeq(b'ACGTGCTCAGAGACTCAG' * 200).codes()] * 2\n"
         "out = backend.sketch_records(recs, 5, 7, smt.NtHasher(5), device='cpu')\n"
         "assert list(out[1][:4]) == [4, 5, 8, 13]\n"
-        "long = fused.sketch_long(torch.from_numpy(recs[0]), recs[0].size, 5, 7,\n"
+        "long = spans.sketch_long(torch.from_numpy(recs[0]), recs[0].size, 5, 7,\n"
         "                         smt.NtHasher(5), byte_codes=True, span_chars=5000)\n"
         "assert long.numpy().tolist() == out[0].tolist()\n"
         "ps = smt.PackedSeqVec.from_ascii(b'ACGTGCTCAGAGACTCAGAGGA')\n"
@@ -242,8 +242,8 @@ def test_imports_without_jax(tmp_path):
         "chars = torch.from_numpy(ps.data)\n"
         "assert device_values.kmer_values_u64(chars, [0], 5, canonical=True)[0] == 721\n"
         "assert native.kmer_values_u64(ps.codes(), [0], 5, True)[0] == 721\n"
-        "assert chunked.sketch(torch.from_numpy(recs[0]), recs[0].size, 5, 7, smt.NtHasher(5),\n"
-        "                      byte_codes=True).tolist() == long.tolist()\n"
+        "assert spans.sketch_long(torch.from_numpy(recs[0]), recs[0].size, 5, 7, smt.NtHasher(5),\n"
+        "                         byte_codes=True).tolist() == long.tolist()\n"
         "out = smt.canonical_minimizers(5, 7).super_kmers().run(ps, device='cpu')\n"
         "assert list(out.positions) == [0, 7, 9, 15] and out.superkmer_indices.size == 4\n"
         "nseq = smt.PackedNSeqVec.from_ascii(b'ACGTGCTCAGAGANTCAGAGGA')\n"
@@ -320,6 +320,41 @@ def test_port_never_imports_the_jax_package():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("simd_minimizers_tpu", "jax"), f"{path} imports {name}"
+
+
+def _imported(path):
+    """Every module a file imports, and every name it imports from one, as
+    absolute dotted names (relative imports resolved)."""
+    parts = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                base = ".".join(parts[:len(parts) - node.level + 1] + [base] * bool(base))
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+def test_ops_import_only_downward():
+    """The kernel wrappers (ops/fused.py) import no driver, entry point or
+    parallel module, and only at the top of the module; no module of ops/
+    imports from parallel/ (the span driver, ops/spans.py, sits between)."""
+    pkg = "simd_minimizers_tpu_torch."
+    ops = os.path.join(ROOT, "simd_minimizers_tpu_torch", "ops")
+    fused = os.path.join(ops, "fused.py")
+    got = set(_imported(fused))
+    assert pkg + "ops.pipeline" in got and pkg + "utils.profiling" in got
+    for name in ("parallel", "ops.spans", "ops.backend", "ops.batch", "ops.device_values"):
+        assert not {g for g in got if g == pkg + name or g.startswith(pkg + name + ".")}, name
+    tree = ast.parse(open(fused).read(), fused)
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert len(top) == sum(isinstance(n, (ast.Import, ast.ImportFrom)) for n in ast.walk(tree))
+    files = sorted(f for f in os.listdir(ops) if f.endswith(".py"))
+    assert "spans.py" in files and "chunked.py" not in files
+    for f in files:
+        assert not any(g.startswith(pkg + "parallel") for g in _imported(os.path.join(ops, f))), f
 
 
 def test_foreign_types_raise():

@@ -31,7 +31,7 @@ from simd_minimizers_tpu.hashers import AntiLexHasher, MulHasher, NtHasher
 from simd_minimizers_tpu.ops import oracle
 from simd_minimizers_tpu.utils.bits import SKIPPED
 from simd_minimizers_tpu_torch import api, convert
-from simd_minimizers_tpu_torch.ops import fused, pipeline
+from simd_minimizers_tpu_torch.ops import fused, pipeline, spans
 from simd_minimizers_tpu_torch.seq.packed import GenericSeq, PackedNSeqVec, PackedSeqVec
 
 pytestmark = pytest.mark.cuda
@@ -677,7 +677,7 @@ def test_sketch_long_many_seams(dev, mode, masked):
     plain = pipeline.run_pipeline(chars, n, k, w, tables, rot, canonical, mode, plane)
     one, plain = ((x,) if mode != SKM else x for x in (one, plain))
     for budget in (0, 1 << 30):
-        got = fused.sketch_long(chars, n, k, w, h, mode, plane, span_chars=1 << 16,
+        got = spans.sketch_long(chars, n, k, w, h, mode, plane, span_chars=1 << 16,
                                 wave_bytes=budget)
         torch.cuda.synchronize()
         for g, o, p in zip(got if mode == SKM else (got,), one, plain, strict=True):
@@ -688,15 +688,13 @@ def test_sketch_long_many_seams(dev, mode, masked):
 
 
 def test_builder_run_long_route(dev, monkeypatch):
-    """Builder.run on the card through sketch_long (threshold lowered), with
-    its pinned download: equal to the one-launch run and the oracle."""
-    from simd_minimizers_tpu_torch.ops import backend
-
+    """Builder.run on the card in spans (spans.SPAN_CHARS lowered), with its
+    pinned download: equal to the one-launch run and the oracle."""
     seq = PackedSeqVec.random(1_000_000, np.random.default_rng(8))
     mask = np.random.default_rng(9).random(1_000_000) < 1e-3
     b = api.canonical_minimizers(21, 11)
     want = b.run(seq, ambiguous=mask, device=dev).positions
-    monkeypatch.setattr(backend, "LONG_SEQUENCE_CHARS", 1 << 18)
+    monkeypatch.setattr(spans, "SPAN_CHARS", 1 << 18)
     got = b.run(seq, ambiguous=mask, device=dev).positions
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, b.run_scalar(seq, ambiguous=mask).positions)
@@ -718,7 +716,7 @@ def test_sketch_records_vs_plain_and_oracle(dev, mode):
     jh = NtHasher(k, canonical=True)
     h = convert.hasher_from(jh)
     (kind, canonical, rot), tables = convert.hasher_tensors(h, dev)
-    got_span = fused.sketch_records(recs, k, w, h, mode, ambs, device=dev, span_chars=50_000)
+    got_span = spans.sketch_records(recs, k, w, h, mode, ambs, device=dev, span_chars=50_000)
     got_routed = backend.sketch_records(recs, k, w, h, mode, ambs, device=dev)
     for i, r in enumerate(recs):
         a = None if ambs is None else ambs[i]
@@ -745,7 +743,7 @@ def test_pinned_downloads_reused_across_waves(dev):
     rng = np.random.default_rng(41)
     recs = [rng.integers(0, 4, int(n), dtype=np.uint8) for n in rng.integers(50_000, 400_000, 40)]
     h = convert.hasher_from(NtHasher(k, canonical=True))
-    runs = [fused.sketch_records(recs, k, w, h, device=dev, span_chars=1 << 17, wave_bytes=b)
+    runs = [spans.sketch_records(recs, k, w, h, device=dev, span_chars=1 << 17, wave_bytes=b)
             for b in (1, 1, 1 << 34)]
     torch.cuda.synchronize()
     for other in runs[1:]:
@@ -1787,9 +1785,9 @@ def test_native_fasta_scan_on_card(dev, tmp_path):
     codes, amb, starts = fasta.fasta_scan_plain(np.frombuffer(raw, np.uint8))
     assert len(recs) == starts.size - 1 == 12
     h = hashers.NtHasher(21, canonical=True)
-    got = fused.sketch_records([r.codes for r in recs], 21, 11, h, pipeline.MODE_MINIMIZERS,
+    got = spans.sketch_records([r.codes for r in recs], 21, 11, h, pipeline.MODE_MINIMIZERS,
                                [r.ambiguous for r in recs], dna=True, device=dev)
-    want = fused.sketch_records(
+    want = spans.sketch_records(
         [codes[a:e] for a, e in zip(starts[:-1], starts[1:])], 21, 11, h,
         pipeline.MODE_MINIMIZERS, [amb[a:e] for a, e in zip(starts[:-1], starts[1:])],
         dna=True, device=dev)

@@ -18,7 +18,7 @@ from simd_minimizers_tpu.ops import backend as jbackend
 from simd_minimizers_tpu.ops import fused as jfused
 from simd_minimizers_tpu.ops import oracle
 from simd_minimizers_tpu_torch import convert
-from simd_minimizers_tpu_torch.ops import backend, fused, pipeline
+from simd_minimizers_tpu_torch.ops import backend, fused, pipeline, spans
 
 C = 1024  # the JAX kernel's smallest legal block width, as tests/test_fused.py runs it
 
@@ -374,7 +374,7 @@ def test_long_input_raises():
         fused.fused_sketch(words, 1 << 31, 21, 11, torch.zeros(2, 4, dtype=torch.int64), 23,
                            False)
     with pytest.raises(AssertionError, match="2\\^32"):
-        fused.sketch_long(words, 1 << 32, 21, 11, smt.NtHasher(21))
+        spans.sketch_long(words, 1 << 32, 21, 11, smt.NtHasher(21))
 
 
 def test_bad_arguments_raise():

@@ -1,4 +1,4 @@
-"""Sequences split into spans: the port's `fused.sketch_long` on CPU tensors
+"""Sequences split into spans: the port's `spans.sketch_long` on CPU tensors
 (the kernels' plain versions) == the JAX package's `fused.sketch_long` (its
 Pallas kernel in interpret mode, C=1024, the span sizes of
 tests/test_drivers.py) == the NumPy oracle; the launch offset near 2^32;
@@ -21,8 +21,7 @@ from simd_minimizers_tpu.ops import oracle
 from simd_minimizers_tpu.parallel import multihost as jmultihost
 from simd_minimizers_tpu.utils.bits import SKIPPED
 from simd_minimizers_tpu_torch import convert
-from simd_minimizers_tpu_torch.ops import backend, fused, pipeline
-from simd_minimizers_tpu_torch.parallel import multihost
+from simd_minimizers_tpu_torch.ops import backend, fused, pipeline, spans
 
 C = 1024
 SKM = pipeline.MODE_SUPERKMERS
@@ -62,7 +61,7 @@ def test_sketch_long_vs_jax(k, w, span, mode, masked):
         codes, mask, chars = _inputs(n, k * w + masked, bytes_in)
         plane = convert.ambiguity_plane(mask, n, "cpu") if masked else None
         before = dict(fused.LAUNCHES)
-        got = fused.sketch_long(chars, n, k, w, smt.NtHasher(k, canonical=canonical), mode, plane,
+        got = spans.sketch_long(chars, n, k, w, smt.NtHasher(k, canonical=canonical), mode, plane,
                                 byte_codes=bytes_in, span_chars=span)
         assert fused.LAUNCHES == before  # CPU tensors launch nothing
         want = jfused.sketch_long(codes, k, w, NtHasher(k, canonical=canonical), mode=mode,
@@ -90,12 +89,12 @@ def test_span_split_does_not_change_the_result(span):
     codes, mask, chars = _inputs(n, span, False)
     h = smt.NtHasher(k, canonical=True)
     plane = convert.ambiguity_plane(mask, n, "cpu")
-    bounds = fused.span_bounds(n, k + w - 1, span)
+    bounds = spans.span_bounds(n, k + w - 1, span)
     assert all(s % fused.TILE == 0 for s, _ in bounds)
     assert bounds[-1][0] + bounds[-1][1] == n and all(m <= max(span, 4096 + 30) for _, m in bounds)
     (kind, canonical, rot), tables = convert.hasher_tensors(h, "cpu")
     for mode in (pipeline.MODE_MINIMIZERS, SKM):
-        got = fused.sketch_long(chars, n, k, w, h, mode, plane, span_chars=span)
+        got = spans.sketch_long(chars, n, k, w, h, mode, plane, span_chars=span)
         _assert_equal(got, fused.fused_sketch(chars, n, k, w, tables, rot, canonical, mode, plane))
 
 
@@ -145,13 +144,13 @@ def test_merge_and_seam_vs_jax(masked):
         parts.append(sel[s:e][kept])
         idxs.append((np.flatnonzero(kept) + s).astype(np.uint32))
     for win in (0, 999, 1000, 2499, sel.size - 1):
-        assert multihost.seam_window_sel(codes, k, w, h, win, mask) == \
+        assert spans.seam_window_sel(codes, k, w, h, win, mask) == \
             jmultihost.seam_window_sel(codes, k, w, jh, win, mask)
     want = jmultihost.merge_adjacent_shards(parts, starts, codes, k, w, jh, mask, aux=idxs)
-    _assert_equal(multihost.merge_adjacent_shards(parts, starts, codes, k, w, h, mask, aux=idxs),
+    _assert_equal(spans.merge_adjacent_shards(parts, starts, codes, k, w, h, mask, aux=idxs),
                   want)
     as_tensors = [torch.from_numpy(p.view(np.int32)) for p in parts]
-    _assert_equal(multihost.merge_adjacent_shards(as_tensors, starts, codes, k, w, h, mask),
+    _assert_equal(spans.merge_adjacent_shards(as_tensors, starts, codes, k, w, h, mask),
                   want[0])
 
 
@@ -179,7 +178,7 @@ def test_u32_limits_raise():
     h = smt.NtHasher(21, canonical=True)
     words = torch.zeros(8, dtype=torch.uint8)
     with pytest.raises(AssertionError, match="2\\^32"):
-        fused.sketch_long(words, 1 << 32, 21, 11, h)
+        spans.sketch_long(words, 1 << 32, 21, 11, h)
     with pytest.raises(AssertionError, match="2\\^32"):
         backend.sketch(words, 1 << 32, 21, 11, h)
     huge = smt.PackedSeq(np.broadcast_to(np.zeros(1, np.uint8), (1 << 30,)), 0, 1 << 32)
@@ -187,7 +186,7 @@ def test_u32_limits_raise():
         smt.canonical_minimizers(21, 11).run(huge, device="cpu")
     recs = [np.broadcast_to(np.zeros(1, np.uint8), (1 << 32,))]
     with pytest.raises(AssertionError, match="2\\^32"):
-        fused.sketch_records(recs, 21, 11, h, device="cpu")
+        spans.sketch_records(recs, 21, 11, h, device="cpu")
     (kind, can, rot), tables = convert.hasher_tensors(h, "cpu")
     with pytest.raises(AssertionError, match="2\\^31"):
         fused.minimizer_tiles(words, 1 << 31, 21, 11, tables, rot, can)
@@ -196,22 +195,24 @@ def test_u32_limits_raise():
 
 
 def test_builder_routes_long_sequences(monkeypatch):
-    """Builder.run sends n >= 2^30 chars to sketch_long (the threshold is
-    lowered here), positions identical to the one-launch path."""
+    """Builder.run sends a sequence to spans.sketch_long, which cuts one of
+    more than spans.PIPELINE_CHUNK_WINDOWS windows on the CPU (lowered here)
+    into spans: positions identical to the one-launch path."""
     seq = smt.PackedSeqVec.random(50_000, np.random.default_rng(5))
     mask = np.random.default_rng(6).random(50_000) < 0.005
     b = smt.canonical_minimizers(21, 11)
     want = b.run(seq, ambiguous=mask, device="cpu").positions
     calls = []
-    real = fused.sketch_long
+    real = spans.sketch_long
 
     def spy(*args, **kw):
         calls.append(args[1])
-        return real(*args, **{**kw, "span_chars": 12_000})
+        return real(*args, **kw)
 
-    monkeypatch.setattr(backend, "LONG_SEQUENCE_CHARS", 40_000)
-    monkeypatch.setattr(fused, "sketch_long", spy)
+    monkeypatch.setattr(spans, "PIPELINE_CHUNK_WINDOWS", 3 * fused.TILE)
+    monkeypatch.setattr(spans, "sketch_long", spy)
     got = b.run(seq, ambiguous=mask, device="cpu")
     assert calls == [50_000]
+    assert len(spans.span_bounds(50_000, 31, spans.span_chars("cpu", 31))) == 5
     np.testing.assert_array_equal(got.positions, want)
     np.testing.assert_array_equal(got.positions, b.run_scalar(seq, ambiguous=mask).positions)

@@ -1,4 +1,4 @@
-"""Many records: the port's `backend.sketch_records` and `fused.sketch_records`
+"""Many records: the port's `backend.sketch_records` and `spans.sketch_records`
 on the CPU (the kernels' plain versions) == the JAX package's
 `backend.sketch_records` and `fused.sketch_records` (its Pallas kernel in
 interpret mode, C=1024) == the NumPy oracle per record: empty, sub-window
@@ -22,7 +22,7 @@ from simd_minimizers_tpu.ops import batch as jbatch
 from simd_minimizers_tpu.ops import fused as jfused
 from simd_minimizers_tpu.ops import oracle
 from simd_minimizers_tpu_torch import convert
-from simd_minimizers_tpu_torch.ops import backend, batch, fused, pipeline
+from simd_minimizers_tpu_torch.ops import backend, batch, pipeline, spans
 
 C = 1024
 SKM = pipeline.MODE_SUPERKMERS
@@ -63,11 +63,11 @@ def _mixed_records(l, seed):
 
 @pytest.mark.parametrize("mode", pipeline.MODES)
 def test_sketch_records_vs_jax(mode):
-    """fused.sketch_records: mixed lengths incl. empty, sub-window and
+    """spans.sketch_records: mixed lengths incl. empty, sub-window and
     multi-span records, each equal to the JAX package's and the oracle's."""
     k, w = 7, 5
     recs = _mixed_records(k + w - 1, 0x5EC5)
-    got = fused.sketch_records(recs, k, w, smt.NtHasher(k, canonical=True), mode, device="cpu",
+    got = spans.sketch_records(recs, k, w, smt.NtHasher(k, canonical=True), mode, device="cpu",
                                span_chars=12_000)
     want = jfused.sketch_records(recs, k, w, NtHasher(k, canonical=True), mode=mode, C=C,
                                  span_chars=12_000, interpret=True)
@@ -84,13 +84,13 @@ def test_sketch_records_masks_with_none_entries():
     recs = [rng.integers(0, 4, n, dtype=np.uint8) for n in (400, 15_000, 64)]
     ambs = [None, (rng.random(15_000) < 0.01).astype(np.uint8),
             (rng.random(64) < 0.2).astype(np.uint8)]
-    got = fused.sketch_records(recs, k, w, h, ambiguous=ambs, device="cpu", span_chars=6000)
+    got = spans.sketch_records(recs, k, w, h, ambiguous=ambs, device="cpu", span_chars=6000)
     _assert_records(got, jfused.sketch_records(recs, k, w, jh, ambiguous=ambs, C=C,
                                                span_chars=6000, interpret=True))
     _assert_records(got, [_want(r, k, w, jh, "minimizers", a) for r, a in zip(recs, ambs)])
     _assert_records(backend.sketch_records(recs, k, w, h, ambiguous=ambs, device="cpu"),
                     jbackend.sketch_records(recs, k, w, jh, ambiguous=ambs))
-    for fn, kw in ((fused.sketch_records, {"device": "cpu"}), (backend.sketch_records,
+    for fn, kw in ((spans.sketch_records, {"device": "cpu"}), (backend.sketch_records,
                                                                {"device": "cpu"})):
         with pytest.raises(AssertionError):
             fn(recs, k, w, h, SKM, ambs, **kw)
@@ -160,17 +160,17 @@ def test_sketch_records_wave_budget_edges(mode, monkeypatch):
     want = jfused.sketch_records(recs, k, w, NtHasher(k, canonical=True), mode=mode, C=C,
                                  span_chars=12_000, interpret=True)
     flushes = []
-    real = fused._LaunchWave.flush
+    real = spans.LaunchWave.flush
 
     def count(self):
         flushes.append(len(self.wave))
         real(self)
 
-    monkeypatch.setattr(fused._LaunchWave, "flush", count)
-    launches = sum(len(fused.span_bounds(r.size, k + w - 1, 12_000)) for r in recs)
+    monkeypatch.setattr(spans.LaunchWave, "flush", count)
+    launches = sum(len(spans.span_bounds(r.size, k + w - 1, 12_000)) for r in recs)
     for budget, widest in ((1, 1), (0, 1), (4 << 30, launches)):
         flushes.clear()
-        got = fused.sketch_records(recs, k, w, h, mode, device="cpu", span_chars=12_000,
+        got = spans.sketch_records(recs, k, w, h, mode, device="cpu", span_chars=12_000,
                                    wave_bytes=budget)
         _assert_records(got, want)
         assert sum(flushes) == launches and max(flushes) == widest
@@ -184,6 +184,6 @@ def test_records_text_and_probe():
     recs = [rng.integers(32, 127, 3000, dtype=np.uint8), rng.integers(0, 4, 2000, dtype=np.uint8)]
     jh = MulHasher(k)
     h = convert.hasher_from(jh)
-    got = fused.sketch_records(recs, k, w, h, device="cpu", span_chars=1200)
+    got = spans.sketch_records(recs, k, w, h, device="cpu", span_chars=1200)
     _assert_records(got, [_want(r, k, w, jh, "minimizers") for r in recs])
-    _assert_records(fused.sketch_records(recs[:1], k, w, h, dna=False, device="cpu"), got[:1])
+    _assert_records(spans.sketch_records(recs[:1], k, w, h, dna=False, device="cpu"), got[:1])

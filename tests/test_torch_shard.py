@@ -22,6 +22,7 @@ from simd_minimizers_tpu.hashers import NtHasher
 from simd_minimizers_tpu.ops import oracle
 from simd_minimizers_tpu.parallel import shard as jshard
 from simd_minimizers_tpu_torch import convert
+from simd_minimizers_tpu_torch.ops import spans
 from simd_minimizers_tpu_torch.parallel import multihost, shard
 
 RNG = np.random.default_rng(0xD15)
@@ -128,14 +129,7 @@ def test_local_shards_merge_to_the_whole(mode):
     parts = [multihost.local_shard_sketch(codes, k, w, ph, 3, s, mode, device="cpu")
              for s in range(3)]
     starts = [multihost.shard_bounds(n, k + w - 1, 3, s)[0] for s in range(3)]
-    if mode == "superkmers":
-        got = multihost._merge_mode_shards([p[0] for p in parts], starts, codes, k, w, ph, mode,
-                                           aux=[p[1] for p in parts])
-    else:
-        got = multihost._merge_mode_shards(parts, starts, codes, k, w, ph, mode)
-        if mode == "minimizers":
-            _equal(multihost.merge_shard_positions(parts), _want(codes, k, w, h, mode))
-    _equal(got, _want(codes, k, w, h, mode))
+    _equal(spans.merge(parts, starts, mode, k, w, ph, codes), _want(codes, k, w, h, mode))
     covered = []
     for s in range(3):
         a, e = multihost.shard_bounds(n, k + w - 1, 3, s)

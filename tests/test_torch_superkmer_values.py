@@ -6,7 +6,7 @@ imports nothing of the program.
 
 On the CPU: super-k-mers and minimizers with their values on seeded 2-bit
 sequences (canonical k=21 w=11 and k=31 w=5, forward k=16 w=9, a sequence
-shorter than one window), the chunked route and its blocks of values, the
+shorter than one window), the CPU's spans and their blocks of values, the
 values step's host waits and bus bytes (none),
 `Builder(...).super_kmers().run(...).values_u64()` asked later or in the
 run (`values=True`), an `Output` that holds no tensor, and the modes and
@@ -28,7 +28,7 @@ import torch
 
 import simd_minimizers_tpu_torch as smt
 from simd_minimizers_tpu_torch import convert
-from simd_minimizers_tpu_torch.ops import backend, chunked, device_values, fused, pipeline
+from simd_minimizers_tpu_torch.ops import backend, device_values, fused, pipeline, spans
 from simd_minimizers_tpu_torch.seq.packed import GenericSeq, PackedSeqVec
 from simd_minimizers_tpu_torch.utils import profiling
 
@@ -88,24 +88,25 @@ def test_sketch_values_match_the_reference(k, w, canonical, n, mode):
 @pytest.mark.parametrize("mode", [SKM, MIN])
 @pytest.mark.parametrize("byte_codes", [False, True], ids=["packed", "code-bytes"])
 def test_chunked_route_values_match_the_reference(mode, byte_codes):
-    """The bounded-memory CPU route, seams every 2 * TILE windows: global
+    """The CPU's spans (`spans.sketch_long`), seams every 2 * TILE windows: global
     positions, and the values of the whole sequence's k-mers."""
     k, w, n = 21, 11, 5 * 2 * TILE + 333
     codes = _codes(n, 77)
     chars = (convert.code_bytes(codes, "cpu") if byte_codes
              else convert.packed_words(PackedSeqVec.from_codes(codes), "cpu"))
     h = smt.NtHasher(k, canonical=True)
-    res = fused.with_values(chunked.sketch(chars, n, k, w, h, mode, byte_codes=byte_codes,
-                                           chunk_windows=2 * TILE), chars, k, True, byte_codes)
+    res = spans.with_values(spans.sketch_long(chars, n, k, w, h, mode, byte_codes=byte_codes,
+                                              span_chars=2 * TILE + k + w - 2),
+                            chars, k, True, byte_codes)
     assert reference.same(_as_reference_planes(res), _want(k, w, True, codes, mode))
 
 
 @pytest.mark.parametrize("mode", [SKM, MIN])
 def test_chunked_route_values_stay_in_blocks(mode, monkeypatch):
     """On the CPU, backend.sketch's values take the positions in blocks of
-    chunked.PIPELINE_CHUNK_WINDOWS, as its chunked route takes the windows:
+    spans.PIPELINE_CHUNK_WINDOWS, as its CPU spans take the windows:
     no values call sees more, and the planes equal the reference's."""
-    monkeypatch.setattr(chunked, "PIPELINE_CHUNK_WINDOWS", 2 * TILE)
+    monkeypatch.setattr(spans, "PIPELINE_CHUNK_WINDOWS", 2 * TILE)
     sizes, real = [], device_values.kmer_values_limbs
 
     def limbs(chars, positions, *a, **kw):
@@ -133,9 +134,9 @@ def test_values_add_no_host_wait_and_no_bus_bytes(route):
     def counted(values):
         syncs, bus = profiling.SYNCS.copy(), profiling.BUS_BYTES.copy()
         if route == "chunked":
-            res = chunked.sketch(chars, n, k, w, h, SKM, chunk_windows=2 * TILE)
+            res = spans.sketch_long(chars, n, k, w, h, SKM, span_chars=2 * TILE + k + w - 2)
             if values:
-                fused.with_values(res, chars, k, True)
+                spans.with_values(res, chars, k, True)
         else:
             backend.sketch(chars, n, k, w, h, SKM, values=values)
         return profiling.SYNCS - syncs, profiling.BUS_BYTES - bus
@@ -257,7 +258,7 @@ def test_sketch_long_values_match_the_reference(dev, mode):
     codes = _codes(n, 2020)
     chars = convert.packed_words(PackedSeqVec.from_codes(codes), dev)
     before = fused.LAUNCHES["kmer_values"]
-    res = fused.with_values(fused.sketch_long(chars, n, k, w, smt.NtHasher(k, canonical=True),
+    res = spans.with_values(spans.sketch_long(chars, n, k, w, smt.NtHasher(k, canonical=True),
                                               mode, span_chars=1 << 20), chars, k, True)
     assert fused.LAUNCHES["kmer_values"] == before + 1
     want = _want(k, w, True, codes, mode)
