@@ -7,11 +7,21 @@ sequence from any object of the same shape (the JAX package's, for one).
 `ops/pipeline.hasher_jit_args`: where that hands the kernel the nt table
 and the mul constant, this hands it the per-char values the rolling fold
 reads, so nt and mul, on 2-bit DNA and on text, are one fold.
+
+A read matrix crosses through pinned memory (`staged_rows`): cut into
+pieces of whole rows, copied on every CPU the process may use into a ring
+of reused pinned buffers, each piece sent to the card as soon as it is in
+its buffer (`Stager`). Every other upload is one blocking copy from
+pageable memory (`upload`).
 """
 
 from __future__ import annotations
 
+import collections
+import os
+import threading
 import warnings
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -20,10 +30,16 @@ from .hashers import AntiLexHasher, KmerHasher, MulHasher, NtHasher
 from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, PackedSeqVec, pack_2bit
 from .utils.device import require_cuda
 from .utils import profiling
-from .utils.profiling import count_bytes, count_sync, stage
+from .utils.profiling import count_bytes, count_staged, count_sync, stage
 
 _HASHERS = {cls.kind: cls for cls in (NtHasher, MulHasher, AntiLexHasher)}
 TABLE_ENTRIES = {False: 4, True: 256}  # per-char table entries: 2-bit codes, text bytes
+# bytes of a staged piece of a read matrix, in whole rows. While the copies
+# fill the host's memory bandwidth, each piece costs the thread that sends
+# it a wait for a CPU: on an H100's 8-CPU host 1,000,000 x 150 B took
+# 10-11 ms in pieces of 16 MiB, 14-25 ms in pieces of 4 MiB
+PIECE = 16 << 20
+IN_FLIGHT = 2  # pinned buffers a worker: pieces being copied, or copied and not yet sent
 
 
 def hasher_from(h) -> KmerHasher:
@@ -121,18 +137,167 @@ def text_bytes(seq: GenericSeq, device: torch.device | str) -> torch.Tensor:
     return code_bytes(seq.seq, device)
 
 
-def code_bytes(codes, device: torch.device | str, name: str = "upload") -> torch.Tensor:
+def code_bytes(codes, device: torch.device | str) -> torch.Tensor:
     """A uint8 array of one char per byte (2-bit codes, as the FASTA reader
-    and the batch engine make them, text, or ASCII reads) in a uint8 tensor
-    of its shape on `device`: 1 B per char over the bus and no host packing;
-    a contiguous array crosses without a host copy. `name` names the stage
-    and the sync site."""
+    and the batch engine make them, or text) in a uint8 tensor of its shape
+    on `device`: 1 B per char over the bus and no host packing; a
+    contiguous array crosses without a host copy, in the stage and at the
+    sync site `upload`."""
     device = require_cuda(device)
     data = np.ascontiguousarray(codes, dtype=np.uint8)
-    with stage(name), warnings.catch_warnings():
+    with stage("upload"), warnings.catch_warnings():
         # bytes input is read-only; no path of the port writes to it
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        return upload(data, device, name)
+        return upload(data, device, "upload")
+
+
+def piece_rows(rows: int, width: int) -> list[tuple[int, int]]:
+    """The pieces `staged_rows` cuts a (rows, width) matrix into, in order:
+    ranges [r0, r1) of whole rows, as many as fit in PIECE bytes (one where
+    a row passes it); none for a matrix of no bytes."""
+    if not rows or not width:
+        return []
+    per = max(PIECE // width, 1)
+    return [(r, min(r + per, rows)) for r in range(0, rows, per)]
+
+
+def staged_rows(matrix: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """A (B, L) uint8 matrix of any strides (a read matrix or its flags, as
+    the caller holds it) as a contiguous (B, L) uint8 tensor on `device`,
+    in the stage `ascii upload`.
+
+    On a card the device's `Stager` copies the `piece_rows` into pinned
+    buffers on a pool of one thread per CPU the process may use (a matrix
+    of one piece on the calling thread) and sends each piece to its rows
+    with a non-blocking copy on the current stream as soon as it is in its
+    buffer. It returns once every byte has left `matrix`, which the caller
+    may then overwrite, without waiting for the card: work queued after it
+    on the current stream sees the whole tensor. Each call copies its bytes
+    anew; nothing is kept for a caller's array. On the CPU, the array
+    itself. Counted as a card's on both: "h2d pinned" bytes, and STAGED's
+    pieces, workers and bytes."""
+    device = require_cuda(device)
+    if matrix.dtype != np.uint8 or matrix.ndim != 2:
+        raise ValueError(f"staged_rows takes a (B, L) uint8 matrix, not {matrix.dtype} "
+                         f"{matrix.ndim}-D")
+    plan = piece_rows(*matrix.shape)
+    workers = min(len(os.sched_getaffinity(0)), len(plan))  # the calling thread for one piece
+    with stage("ascii upload"):
+        count_bytes("h2d pinned", matrix.nbytes)
+        count_staged({"pieces": len(plan), "workers": workers, "bytes": matrix.nbytes})
+        if device.type != "cuda":
+            with warnings.catch_warnings():
+                warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+                return torch.from_numpy(np.ascontiguousarray(matrix))
+        return stager(device).upload(matrix, plan)
+
+
+class _Slot:
+    """A host buffer of a `Stager`'s ring and the event of its last copy to
+    the card (None before its first)."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, host: torch.Tensor):
+        self.host, self.event = host, None
+
+
+def _fill(slot: _Slot, rows: np.ndarray) -> torch.Tensor:
+    """Waits for the buffer's last copy to the card, then copies `rows` into
+    it (NumPy lets go of the interpreter lock): the filled bytes as a tensor
+    of rows' shape."""
+    if slot.event is not None:
+        slot.event.synchronize()
+    host = slot.host[:rows.nbytes].view(rows.shape)
+    np.copyto(host.numpy(), rows)
+    return host
+
+
+class Stager:
+    """`staged_rows` on one device: a ring of up to IN_FLIGHT buffers a
+    worker (pinned on a card), of PIECE bytes or one row where a row passes
+    it, made as a call first needs them and kept; piece j of a call takes
+    buffer j of the ring, round it. A pool of one thread per CPU the process
+    may use, made at the first matrix of more than one piece and kept. A
+    buffer is written again only after the event of its last copy to the
+    card has fired: the thread that fills it waits for it, and each such
+    wait counts at the sync site `staging wait`. One upload at a time (a
+    lock). On the CPU the buffers are plain memory and the copies
+    synchronous: the same plan, pool and ring, which the CPU tests reach."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cpus = len(os.sched_getaffinity(0))
+        self.ring: list[_Slot] = []
+        self.pool: ThreadPoolExecutor | None = None
+        self.lock = threading.Lock()
+
+    def upload(self, matrix: np.ndarray, plan: list) -> torch.Tensor:
+        """`matrix` as a new (B, L) uint8 tensor on the device, piece by
+        piece of `plan` (its `piece_rows`)."""
+        out = torch.empty(matrix.shape, dtype=torch.uint8, device=self.device)
+        with self.lock:
+            if len(plan) == 1:
+                slot = self._take(0, matrix.nbytes)
+                self._send(slot, _fill(slot, matrix), out)
+                return out
+            if plan and self.pool is None:
+                self.pool = ThreadPoolExecutor(self.cpus, thread_name_prefix="smt-staging")
+            ring = IN_FLIGHT * self.cpus
+            ahead = collections.deque()  # (slot, future of its filled rows, their rows on the card)
+            try:
+                for j, (r0, r1) in enumerate(plan):
+                    if len(ahead) == ring:  # piece j - ring sent before its buffer is taken
+                        slot, filled, dst = ahead.popleft()
+                        self._send(slot, filled.result(), dst)
+                    slot = self._take(j % ring, (r1 - r0) * matrix.shape[1])
+                    ahead.append((slot, self.pool.submit(_fill, slot, matrix[r0:r1]),
+                                  out[r0:r1]))
+                while ahead:
+                    slot, filled, dst = ahead.popleft()
+                    self._send(slot, filled.result(), dst)
+            finally:  # no thread still writes a buffer once the lock is let go
+                wait([filled for _, filled, _ in ahead])
+        return out
+
+    def _take(self, i: int, nbytes: int) -> _Slot:
+        """Buffer i of the ring, made or grown (after its last copy) to hold
+        `nbytes`; a wait to come on its last copy is counted."""
+        if i == len(self.ring):
+            self.ring.append(_Slot(self._buffer(nbytes)))
+        slot = self.ring[i]
+        if slot.host.numel() < nbytes:
+            if slot.event is not None:
+                count_sync("staging wait")
+                slot.event.synchronize()
+            self.ring[i] = slot = _Slot(self._buffer(nbytes))
+        if slot.event is not None:
+            count_sync("staging wait")
+        return slot
+
+    def _buffer(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(max(PIECE, nbytes), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+
+    def _send(self, slot: _Slot, host: torch.Tensor, dst: torch.Tensor) -> None:
+        """The filled buffer's copy to its rows on the card, on the current
+        stream, and the event that frees the buffer after it."""
+        dst.copy_(host, non_blocking=True)
+        if self.device.type == "cuda":
+            if slot.event is None:
+                slot.event = torch.cuda.Event()
+            slot.event.record(torch.cuda.current_stream(self.device))
+
+
+_STAGERS: dict[torch.device, Stager] = {}
+
+
+def stager(device: torch.device) -> Stager:
+    """The device's `Stager`, made at its first staged upload and kept."""
+    s = _STAGERS.get(device)
+    if s is None:
+        s = _STAGERS[device] = Stager(device)
+    return s
 
 
 def is_dna(codes: np.ndarray) -> bool:

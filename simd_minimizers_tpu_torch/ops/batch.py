@@ -12,8 +12,9 @@ lengths by `convert.padding_plane`) in every mode, super-k-mers included.
 Strides are bucketed to a 3-bit mantissa, so padding wastes under 12.5%.
 
 A (B, L) matrix of ASCII reads, as `Builder.run_batch` takes it, has one
-stride and crosses the bus as the caller holds it: each launch's range of
-rows is folded to codes (or kept as text, row by row), laid into slots and
+stride and crosses the bus as the caller holds it, staged through pinned
+buffers on every CPU (`convert.staged_rows`): each launch's range of rows
+is folded to codes (or kept as text, row by row), laid into slots and
 given its padding plane by one kernel on the device (`ascii_launches`,
 `fused.ascii_slots`), and whether every row was DNA is read back once a
 call. Lists of reads, and matrices of codes folded already, are folded and
@@ -108,7 +109,8 @@ def ascii_launches(matrix: np.ndarray, ambiguous, l: int, device: torch.device,
     """The launches of a (B, L) uint8 matrix of ASCII reads, as `launches`
     gives them but with the first row of each in place of its read ids:
     each launch's contiguous range of rows crosses the bus as the caller
-    holds it (with its (rows, L) flags `ambiguous`, if given), and
+    holds it, staged through pinned buffers (`convert.staged_rows`; with
+    its (rows, L) flags `ambiguous`, if given, the same way), and
     `fused.ascii_slots` folds it into slots and writes the padding plane on
     `device`, clearing the int32 word `dna` there unless every row is all
     ACGT. One stride, `_stride_bucket(L + 1)`, split at MAX_LAUNCH_CHARS;
@@ -120,9 +122,8 @@ def ascii_launches(matrix: np.ndarray, ambiguous, l: int, device: torch.device,
     per_launch = max(MAX_LAUNCH_CHARS // stride, 1)
     for r0 in range(0, B, per_launch):
         r1 = min(r0 + per_launch, B)
-        rows = convert.code_bytes(matrix[r0:r1], device, "ascii upload")
-        amb = (None if ambiguous is None
-               else convert.code_bytes(ambiguous[r0:r1], device, "ascii upload"))
+        rows = convert.staged_rows(matrix[r0:r1], device)
+        amb = None if ambiguous is None else convert.staged_rows(ambiguous[r0:r1], device)
         with stage("fold on card"):
             chars, plane = fused.ascii_slots(rows, stride, dna, amb)
         yield r0, stride, chars, (r1 - r0) * stride, plane

@@ -29,7 +29,11 @@ Each config goes through one entry point, in turn: `Builder.run` (with a
 mask on canonical minimizers `run_skip_ambiguous_windows`; on a third of
 the configs also `Output.values_u64` / `values_u128_limbs`), the span
 drivers `ops/spans.sketch_long` and `ops/spans.sketch_records` with small
-spans, `Builder.run_batch`, `parallel/shard.fused_sharded_sketch` and the
+spans, `Builder.run_batch` (a list of reads; on every other of its configs
+but those of ACGT text, which a matrix would fold to codes, a (B, L) ASCII
+matrix of equal-length rows with a (B, L) mask: the matrix route, staged
+through pinned buffers and folded on the card),
+`parallel/shard.fused_sharded_sketch` and the
 multi-process seam merge (`multihost.local_shard_sketch` for each shard,
 then `spans.merge`) over 1..9 shards of the one device,
 and `ShortSeqSketcher` (inputs up to its capacity, no mask). Every result
@@ -82,6 +86,9 @@ MAX_W = (1 << 16) - fused.TILE - 1  # the widest w with TILE + w <= 2^16 at odd 
 LARGE_W_EVERY = 6  # config i takes the large-w route where i % 6 == 5
 MAX_N = 60_000
 ACGT = np.frombuffer(b"ACTG", np.uint8)  # code c as its ASCII letter ((c >> 1) & 3 == c)
+# text symbols of a matrix's rows: no row may be all ACGTacgt, which the
+# matrix route folds to 2-bit codes
+NOT_ACGT = np.setdiff1d(np.arange(32, 127, dtype=np.uint8), np.frombuffer(b"ACGTacgt", np.uint8))
 
 
 @dataclasses.dataclass
@@ -103,6 +110,7 @@ class Config:
     span_chars: int = 0
     offset: int = 0  # base offset of the packed slice
     values: bool = False
+    matrix: bool = False  # run_batch of a (B, L) ASCII matrix, not a list
 
     @property
     def l(self) -> int:
@@ -179,6 +187,9 @@ def draw(seed: int, index: int) -> Config:
         cfg.span_chars = max(int(rng.integers(l + 1, max(n, l + 2) + 1)), 2 * l)
     if kind == "packed" and entry == "run":
         cfg.offset = int(rng.integers(0, 4))
+    if entry == "run_batch" and kind != "acgt_text" and index // len(ENTRIES) % 2:
+        cfg.matrix = True
+        cfg.lengths = [lengths[0]] * len(lengths)
     cfg.values = entry == "run" and index % 3 == 0
     if not fused.fused_supported(k, w, canonical, mode, mask != "none",
                                  kind in ("text", "acgt_text"), hasher):
@@ -191,7 +202,8 @@ def _piece_chars(cfg: Config, rng, n: int) -> np.ndarray:
     if cfg.kind == "acgt_text":
         syms = rng.permutation(np.frombuffer(b"ACGT", np.uint8))[:cfg.alphabet]
     elif cfg.kind == "text":
-        syms = rng.choice(np.arange(32, 127, dtype=np.uint8), cfg.alphabet, replace=False)
+        pool = NOT_ACGT if cfg.matrix else np.arange(32, 127, dtype=np.uint8)
+        syms = rng.choice(pool, cfg.alphabet, replace=False)
     else:
         syms = rng.permutation(np.arange(4, dtype=np.uint8))[:cfg.alphabet]
     return syms[rng.integers(0, cfg.alphabet, n)]
@@ -333,8 +345,12 @@ def run_entry(cfg: Config, pieces, device: torch.device) -> list[tuple]:
                                    device=device, span_chars=cfg.span_chars)
         return [_planes(r) for r in res]
     if cfg.entry == "run_batch":
-        reads = [_seq_of(cfg, c) for c, _ in pieces]
         masks = [a for _, a in pieces] if cfg.mask != "none" else None
+        if cfg.matrix:  # ASCII rows, as a FASTQ reader hands them over
+            reads = np.stack([c if cfg.kind == "text" else ACGT[c] for c, _ in pieces])
+            masks = None if masks is None else np.stack(masks).astype(np.uint8)
+        else:
+            reads = [_seq_of(cfg, c) for c, _ in pieces]
         rid, *planes = builder_of(cfg).run_batch(reads, ambiguous=masks, device=device)
         bounds = np.searchsorted(rid, np.arange(len(pieces) + 1))
         return [tuple(p[bounds[i]:bounds[i + 1]] for p in planes) for i in range(len(pieces))]

@@ -22,7 +22,10 @@ each route; where the CPU takes another route, it counts that route's (the
 short path's plain kernels count `totals readback` and pageable bytes, its
 graph on a card `short wait` and pinned ones). `DEFLATE` counts the
 blocks, workers and bytes of the compressed .npz writes (`utils/npz.py`,
-`count_deflate`). `PROFILED` holds what the calls made while a profiler
+`count_deflate`); `STAGED` the pieces, workers and bytes of the read
+matrices staged through pinned buffers (`convert.staged_rows`,
+`count_staged`), whose waits on a buffer's last copy count at the site
+`staging wait`. `PROFILED` holds what the calls made while a profiler
 recorded counted inside the port's spans, and the seconds in each span:
 only the benchmark's readers read it (ROADMAP A2c takes it out). Like
 `ops.fused.LAUNCHES` they take no lock: calls from several threads at once
@@ -48,10 +51,14 @@ BUS_BYTES: collections.Counter = collections.Counter()  # kind -> bytes moved
 # the compressed .npz writes (utils/npz.py): "blocks" deflated, "workers"
 # (the pool of each write, summed), "bytes in" and "bytes out" of deflate
 DEFLATE: collections.Counter = collections.Counter()
-# while a profiler recorded: "syncs", "bus_bytes" and "deflate" as above,
-# "span_s" seconds by span name (without the prefix)
+# the staged uploads of read matrices (convert.staged_rows): "pieces" copied
+# into pinned buffers, "workers" (the threads of each upload, summed), "bytes"
+STAGED: collections.Counter = collections.Counter()
+# while a profiler recorded: "syncs", "bus_bytes", "deflate" and "staged" as
+# above, "span_s" seconds by span name (without the prefix)
 PROFILED = {"syncs": collections.Counter(), "bus_bytes": collections.Counter(),
-            "deflate": collections.Counter(), "span_s": collections.Counter()}
+            "deflate": collections.Counter(), "staged": collections.Counter(),
+            "span_s": collections.Counter()}
 recording = torch._C._autograd._profiler_enabled  # a torch.profiler session records
 _OFF = contextlib.nullcontext()
 _open_spans = 0  # spans open in a recording profiler
@@ -160,6 +167,14 @@ def count_deflate(counts: dict) -> None:
     DEFLATE.update(counts)
     if _open_spans:
         PROFILED["deflate"].update(counts)
+
+
+def count_staged(counts: dict) -> None:
+    """One staged upload's pieces, workers and bytes (STAGED); the bytes
+    are counted in BUS_BYTES too, as "h2d pinned", by the caller."""
+    STAGED.update(counts)
+    if _open_spans:
+        PROFILED["staged"].update(counts)
 
 
 class _Span:

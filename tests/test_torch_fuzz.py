@@ -109,6 +109,27 @@ def test_fuzz_covers_the_config_space():
     assert fuzz.draw(5, 17) == cfgs[17]  # a config depends on (seed, index) alone
 
 
+def test_fuzz_hands_run_batch_matrices():
+    """Every other run_batch config of packed, 2-bit or text kind hands a
+    (B, L) ASCII matrix of equal-length rows, never of ACGT text (a matrix
+    folds that to codes), and a text matrix has no all-ACGTacgt row; each
+    runs equal to the oracle on the CPU."""
+    cfgs = [fuzz.draw(5, i) for i in range(210)]
+    batch = [c for c in cfgs if c.entry == "run_batch"]
+    matrices = [c for c in batch if c.matrix]
+    assert not any(c.matrix for c in cfgs if c.entry != "run_batch")
+    assert {c.kind for c in matrices} == {"packed", "codes", "text"}
+    assert all(len(set(c.lengths)) == 1 for c in matrices)
+    assert any(c.mask != "none" for c in matrices)
+    assert any(c.kind != "acgt_text" and not c.matrix for c in batch)
+    for c in matrices:
+        if c.kind == "text":
+            for chars, _ in fuzz.make_inputs(c):
+                assert not np.isin(chars, np.frombuffer(b"ACGTacgt", np.uint8)).any()
+    for c in matrices[:4]:
+        assert fuzz.run(seed=5, index=c.index, device="cpu")["configs"] == 1
+
+
 def test_index_reruns_one_config():
     s = fuzz.run(seed=3, index=11, device="cpu")
     assert s["configs"] == 1 and s["slowest"]["config"] == fuzz.draw(3, 11).line()

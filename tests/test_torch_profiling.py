@@ -197,10 +197,9 @@ def _expected_counts(entry: str, out):
     """(SYNCS, BUS_BYTES) of one call of `entry` on the CPU, from its
     inputs: every blocking upload waits for the card's stream and counts as
     a sync; 2-bit nt tables are 2 x 4 int64 (64 B)."""
-    if entry == "run_batch":  # the matrix folded on the device
-        return ({"ascii upload": 1, "dna probe": 1, "tables upload": 1, "totals readback": 1,
-                 "download wait": 1},
-                {"h2d pageable": READS.size + 64, "d2h pageable": 4 + 4,
+    if entry == "run_batch":  # the matrix staged through pinned buffers, folded on the device
+        return ({"dna probe": 1, "tables upload": 1, "totals readback": 1, "download wait": 1},
+                {"h2d pinned": READS.size, "h2d pageable": 64, "d2h pageable": 4 + 4,
                  "d2h pinned": 4 * 2 * out[1].size})
     if entry == "run_batch, list":
         stride = batch._stride_bucket(READS.shape[1] + 1)
@@ -377,11 +376,14 @@ def _matrix_call_counts(dev, monkeypatch, ranges):
 @pytest.mark.parametrize("ranges", [1, 3])
 def test_matrix_run_batch_folds_once_a_range_and_probes_once(ranges, monkeypatch):
     """On the CPU: one ascii_slots call a launch range (its plain version,
-    so no launch is counted), one dna probe a call, and the three spans of
-    the matrix route recorded."""
+    so no launch is counted), one dna probe a call, no blocking upload (each
+    range staged in one piece), and the three spans of the matrix route
+    recorded."""
+    staged = collections.Counter(profiling.STAGED)
     calls, added, syncs, spans = _matrix_call_counts("cpu", monkeypatch, ranges)
     assert calls == ranges and added == {}
-    assert syncs["dna probe"] == 1 and syncs["ascii upload"] == ranges
+    assert syncs["dna probe"] == 1 and "ascii upload" not in syncs
+    assert (profiling.STAGED - staged)["pieces"] == 2 * ranges  # the warm call's and the traced
     assert {"ascii upload", "fold on card", "dna probe"} <= spans
     assert not spans & {"fold reads to codes", "slot fill", "stride buckets"}
 
@@ -401,7 +403,7 @@ def test_matrix_run_batch_launches_on_the_card(ranges, monkeypatch):
     assert calls == ranges
     assert added == {"ascii_slots": ranges, tiles: ranges, "tile_offsets": ranges,
                      "tile_append": ranges}
-    assert syncs["dna probe"] == 1
+    assert syncs["dna probe"] == 1 and "ascii upload" not in syncs
     assert {"ascii upload", "fold on card", "dna probe"} <= spans
 
 
