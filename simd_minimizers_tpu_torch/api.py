@@ -139,7 +139,7 @@ class Builder:
 
     @property
     def _out_length(self) -> int:
-        return self.k + self.w - 1 if self.syncmer != _SYNCMER_NONE else self.k
+        return spans.value_length(self.k, self.w, self._mode)
 
     @property
     def _mode(self) -> str:
@@ -155,11 +155,12 @@ class Builder:
         indices for super-k-mers) of `seq` on `device`. Windows holding a
         char that the per-char mask `ambiguous` flags are skipped.
 
-        With `values` (minimizers and super-k-mers of DNA, k <= 32; else
-        NotImplementedError) the sketch call computes each kept k-mer's u64
-        value on `device` too (`backend.sketch(..., values=True)`), and they
-        come back with the positions: `values_u64` returns them, and
-        nothing crosses the bus again. Without it nothing of the run stays
+        With `values` (DNA, values of at most 32 chars: k, or k + w - 1 for
+        syncmers; else NotImplementedError) the sketch call computes the u64
+        value of each kept k-mer, or of the syncmer at each window index, on
+        `device` too (`backend.sketch(..., values=True)`), and they come
+        back with the positions: `values_u64` returns them, and nothing
+        crosses the bus again. Without it nothing of the run stays
         on the card, and `values_u64` computes them when asked.
 
         `seq` is a sequence of the port (`PackedSeq`, `AsciiSeq` or

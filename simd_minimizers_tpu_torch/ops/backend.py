@@ -61,18 +61,21 @@ def sketch(chars: torch.Tensor, n: int, k: int, w: int, hasher: KmerHasher,
     card; on a CPU tensor spans.PIPELINE_CHUNK_WINDOWS windows, which bounds
     the plain version's memory).
 
-    With `values` (2-bit minimizers and super-k-mers, k <= 32; anything
-    else raises NotImplementedError) one more plane follows: each kept
-    k-mer's 2-bit value, canonical where the hasher is, an int64 tensor
-    holding the u64 bits, computed by `kmer_values` on chars.device from
-    `chars` and the positions before anything leaves the card
+    With `values` (2-bit DNA, values of at most 32 chars; anything else
+    raises NotImplementedError) one more plane follows: the 2-bit value of
+    each kept k-mer, or for syncmers of the (k + w - 1)-mer at each window
+    index (`spans.value_length`), canonical where the hasher is, an int64
+    tensor holding the u64 bits, computed by `kmer_values` on chars.device
+    from `chars` and the positions before anything leaves the card
     (`spans.with_values`)."""
     with span("sketch"):
         _check_parameters(k, w, hasher, mode)
         if values:
-            spans.check_values(k, mode, text)
+            spans.check_values(k, w, mode, text)
         res = spans.sketch_long(chars, n, k, w, hasher, mode, ambiguous, text=text)
-        return spans.with_values(res, chars, k, hasher.canonical) if values else res
+        if not values:
+            return res
+        return spans.with_values(res, chars, spans.value_length(k, w, mode), hasher.canonical)
 
 
 def sketch_records(records, k: int, w: int, hasher: KmerHasher,

@@ -278,30 +278,39 @@ def sketch_long(chars: torch.Tensor, n: int, k: int, w: int, hasher,
                  None if ambiguous is None else _SeamChars(ambiguous, 8))
 
 
-def check_values(k: int, mode: str, text: bool) -> None:
+def value_length(k: int, w: int, mode: str) -> int:
+    """Chars of the value at each answer of a sketch in `mode`: the k-mer at
+    a minimizer's position, the (k + w - 1)-mer at a syncmer's window index
+    (the crate's `Output` length, src/lib.rs:439-447)."""
+    return k + w - 1 if mode in pipeline.SYNCMER_MODES else k
+
+
+def check_values(k: int, w: int, mode: str, text: bool) -> None:
     """Raise NotImplementedError where a sketch's values have no route:
-    syncmers (their values would be of (k + w - 1)-mers at window indices),
-    text (8-bit chars) and k > 32 (the values are u64)."""
-    if mode in pipeline.SYNCMER_MODES or text or k > 32:
+    text (8-bit chars) and values of more than 32 chars (they are u64)."""
+    if text or value_length(k, w, mode) > 32:
         raise NotImplementedError(
-            f"values=True covers 2-bit minimizers and super-k-mers at k <= 32, not {mode} "
-            f"of {'text' if text else '2-bit DNA'} at k={k} (Output computes the others)")
+            f"values=True covers 2-bit values of at most 32 chars (k of minimizers and "
+            f"super-k-mers, k + w - 1 of syncmers), not {mode} of "
+            f"{'text' if text else '2-bit DNA'} at k={k}, w={w} (Output computes the others)")
 
 
-def with_values(res, chars: torch.Tensor, k: int, canonical: bool, byte_codes: bool = False):
-    """`res` (positions, or (positions, first-window indices)) with one more
-    plane behind it: the 2-bit value of the k-mer (k <= 32) at each
-    position of the sequence in `chars`, canonical the least of the forward
-    and the reverse complement value, as an int64 tensor holding the u64
-    bits. On a card one `kmer_values` launch computes it from the positions
-    tensor as the sketch left it, on the current stream: no host sync and
-    no upload. On the CPU the plain version takes the positions in blocks
-    of PIPELINE_CHUNK_WINDOWS, which bounds its memory as the CPU's spans
-    bound the sketch's."""
+def with_values(res, chars: torch.Tensor, length: int, canonical: bool,
+                byte_codes: bool = False):
+    """`res` (positions or window indices, or (positions, first-window
+    indices)) with one more plane behind it: the 2-bit value of the
+    `length`-mer (at most 32 chars; `value_length`) at each of the first
+    plane's positions of the sequence in `chars`, canonical the least of the
+    forward and the reverse complement value, as an int64 tensor holding the
+    u64 bits. On a card one `kmer_values` launch computes it from the
+    positions tensor as the sketch left it, on the current stream: no host
+    sync and no upload. On the CPU the plain version takes the positions in
+    blocks of PIPELINE_CHUNK_WINDOWS, which bounds its memory as the CPU's
+    spans bound the sketch's."""
     pos = res[0] if isinstance(res, tuple) else res
     block = PIPELINE_CHUNK_WINDOWS if chars.device.type == "cpu" else pos.numel()
     with span("values"):
-        vals = [_u64(device_values.kmer_values_limbs(chars, pos[s:s + block], k, canonical,
+        vals = [_u64(device_values.kmer_values_limbs(chars, pos[s:s + block], length, canonical,
                                                      byte_codes))
                 for s in range(0, max(pos.numel(), 1), max(block, 1))]
         vals = vals[0] if len(vals) == 1 else torch.cat(vals)

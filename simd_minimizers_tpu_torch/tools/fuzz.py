@@ -27,7 +27,9 @@ generator, `default_rng([S, i])`, so `--index I` re-runs config I alone:
 
 Each config goes through one entry point, in turn: `Builder.run` (with a
 mask on canonical minimizers `run_skip_ambiguous_windows`; on a third of
-the configs also `Output.values_u64` / `values_u128_limbs`), the span
+the configs also `Output.values_u64` / `values_u128_limbs`, every other of
+them asked for in the run, `values=True`, where the sketch call computes
+them: 2-bit values of at most 32 chars, syncmers' too), the span
 drivers `ops/spans.sketch_long` and `ops/spans.sketch_records` with small
 spans, `Builder.run_batch` (a list of reads; on every other of its configs
 but those of ACGT text, which a matrix would fold to codes, a (B, L) ASCII
@@ -110,6 +112,7 @@ class Config:
     span_chars: int = 0
     offset: int = 0  # base offset of the packed slice
     values: bool = False
+    values_in_call: bool = False  # Builder.run(..., values=True)
     matrix: bool = False  # run_batch of a (B, L) ASCII matrix, not a list
 
     @property
@@ -191,6 +194,9 @@ def draw(seed: int, index: int) -> Config:
         cfg.matrix = True
         cfg.lengths = [lengths[0]] * len(lengths)
     cfg.values = entry == "run" and index % 3 == 0
+    cfg.values_in_call = (cfg.values and index // len(ENTRIES) % 2 == 0
+                          and kind not in ("text", "acgt_text")
+                          and spans.value_length(k, w, mode) <= 32)
     if not fused.fused_supported(k, w, canonical, mode, mask != "none",
                                  kind in ("text", "acgt_text"), hasher):
         raise AssertionError(f"config outside the kernel's geometry: {cfg.line()}")
@@ -321,10 +327,13 @@ def run_entry(cfg: Config, pieces, device: torch.device) -> list[tuple]:
     if cfg.entry == "run":
         b = builder_of(cfg)
         seq = _seq_of(cfg, chars, cfg.offset)
-        if amb is not None and cfg.canonical and mode == pipeline.MODE_MINIMIZERS and not text:
+        if (amb is not None and cfg.canonical and mode == pipeline.MODE_MINIMIZERS and not text
+                and not cfg.values_in_call):
             out = b.run_skip_ambiguous_windows(PackedNSeqVec(seq, amb), device=device)
         else:
-            out = b.run(seq, ambiguous=amb, device=device)
+            out = b.run(seq, ambiguous=amb, device=device, values=cfg.values_in_call)
+        if cfg.values_in_call and out._values_u64 is None:
+            raise _Mismatch("values not computed in the run")
         if cfg.values:
             _values_check(cfg, out, chars)
         return [(out.positions,) if out.superkmer_indices is None
@@ -379,11 +388,12 @@ def _equal(got: list[tuple], want: list[tuple]) -> bool:
 
 def _tally(configs: list[Config]) -> dict:
     by = {name: collections.Counter() for name in ("entry", "mode", "route", "hasher", "kind",
-                                                   "mask")}
+                                                   "mask", "values")}
     for c in configs:
+        values = "in the call" if c.values_in_call else "asked later" if c.values else "none"
         for name, val in (("entry", c.entry), ("mode", c.mode), ("route", c.route()),
                           ("hasher", c.hasher + ("" if c.hasher_seed is None else ", seeded")),
-                          ("kind", c.kind), ("mask", c.mask)):
+                          ("kind", c.kind), ("mask", c.mask), ("values", values)):
             by[name][val] += 1
     return {f"by_{name}": dict(sorted(cnt.items())) for name, cnt in by.items()}
 
@@ -467,7 +477,8 @@ def main(argv=None) -> int:
     print(f"fuzz: {summary['configs']} configs of seed {summary['seed']} on "
           f"{summary['device']}, 0 mismatches, {summary['seconds']:.1f} s "
           f"({summary['configs_per_s']:.2f} configs/s)")
-    for key in ("by_entry", "by_mode", "by_route", "by_hasher", "by_kind", "by_mask"):
+    for key in ("by_entry", "by_mode", "by_route", "by_hasher", "by_kind", "by_mask",
+                "by_values"):
         print(f"  {key[3:]}: " + ", ".join(f"{k} {v}" for k, v in summary[key].items()))
     if summary["slowest"]:
         print(f"  slowest: {summary['slowest']['entry_s']:.3f} s through its entry: "

@@ -9,8 +9,8 @@ sequences (canonical k=21 w=11 and k=31 w=5, forward k=16 w=9, a sequence
 shorter than one window), the CPU's spans and their blocks of values, the
 values step's host waits and bus bytes (none),
 `Builder(...).super_kmers().run(...).values_u64()` asked later or in the
-run (`values=True`), an `Output` that holds no tensor, and the modes and
-inputs that raise. The cases marked `cuda` hold the kernel route and
+run (`values=True`), an `Output` that holds no tensor, and the inputs that
+raise (syncmers' values: `test_torch_syncmer_values.py`). The cases marked `cuda` hold the kernel route and
 `sketch_long` on a card to the same, `Builder.run(..., values=True)` to
 its single upload, and a run to the card memory it leaves (none); they
 skip without a card and run as
@@ -172,12 +172,6 @@ def test_builder_run_keeps_no_tensor(super_kmers, values):
                                   b.run(PackedSeqVec.from_codes(codes), device="cpu").values_u64())
 
 
-def test_builder_values_of_syncmers_raise():
-    with pytest.raises(NotImplementedError, match="values=True"):
-        smt.closed_syncmers(21, 11).run(PackedSeqVec.from_codes(_codes(5000, 3)), device="cpu",
-                                        values=True)
-
-
 def test_reference_golden_values():
     """The crate's doc-test: canonical k=5 w=7 minimizers of
     ACGTGCTCAGAGACTCAGAGGA at 0, 7, 9, 15, the first value 721 (0x2D1)."""
@@ -185,15 +179,6 @@ def test_reference_golden_values():
     pos, idx, lo, hi = superkmers_ref(5, 7, True).sequence(reference.ascii_codes(seq))
     assert pos.tolist() == [0, 7, 9, 15] and int(lo[0]) == 721 and not hi.any()
     assert idx[0] == 0 and idx.tolist() == sorted(idx.tolist())
-
-
-@pytest.mark.parametrize("mode", [pipeline.MODE_CLOSED_SYNCMERS, pipeline.MODE_OPEN_SYNCMERS])
-def test_values_of_syncmers_raise(mode):
-    codes = _codes(5000, 3)
-    chars = convert.packed_words(PackedSeqVec.from_codes(codes), "cpu")
-    with pytest.raises(NotImplementedError, match="values=True"):
-        backend.sketch(chars, codes.size, 21, 11, smt.NtHasher(21, canonical=True), mode,
-                       values=True)
 
 
 @pytest.mark.parametrize("mode", [SKM, MIN])
