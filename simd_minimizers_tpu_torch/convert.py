@@ -12,7 +12,9 @@ A read matrix crosses through pinned memory (`staged_rows`): cut into
 pieces of whole rows, copied on every CPU the process may use into a ring
 of reused pinned buffers, each piece sent to the card as soon as it is in
 its buffer (`Stager`). Every other upload is one blocking copy from
-pageable memory (`upload`).
+pageable memory (`upload`). A hasher's char tables cross once per device
+and table in a process: `hasher_tensors` keeps them on the device, keyed by
+what the kernels read.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .hashers import AntiLexHasher, KmerHasher, MulHasher, NtHasher
 from .seq.packed import AsciiSeq, GenericSeq, PackedNSeqVec, PackedSeq, PackedSeqVec, pack_2bit
 from .utils.device import require_cuda
 from .utils import profiling
-from .utils.profiling import count_bytes, count_staged, count_sync, stage
+from .utils.profiling import count_bytes, count_staged, count_sync, count_tables, stage
 
 _HASHERS = {cls.kind: cls for cls in (NtHasher, MulHasher, AntiLexHasher)}
 TABLE_ENTRIES = {False: 4, True: 256}  # per-char table entries: 2-bit codes, text bytes
@@ -40,6 +42,11 @@ TABLE_ENTRIES = {False: 4, True: 256}  # per-char table entries: 2-bit codes, te
 # 10-11 ms in pieces of 16 MiB, 14-25 ms in pieces of 4 MiB
 PIECE = 16 << 20
 IN_FLIGHT = 2  # pinned buffers a worker: pieces being copied, or copied and not yet sent
+# char tables kept on their devices by `hasher_tensors`, the oldest dropped
+# first past it; an entry is at most 2 x 256 x 8 B
+TABLES_KEPT = 64
+_tables: collections.OrderedDict = collections.OrderedDict()  # _table_key -> (key, tensor)
+_tables_lock = threading.Lock()
 
 
 def hasher_from(h) -> KmerHasher:
@@ -97,19 +104,54 @@ def char_tables(hasher: KmerHasher, text: bool) -> np.ndarray | None:
 
 def hasher_tensors(hasher: KmerHasher, device: torch.device | str, text: bool = False):
     """(key, tables): key = (kind, canonical, rot_offset); tables =
-    `char_tables` as an int64 (2, nchars) tensor on `device`, or None."""
+    `char_tables` as an int64 (2, nchars) tensor on `device`, or None.
+
+    The tensor is built and uploaded on the first call for its device and
+    table contents in the process (`TABLES` counts an upload) and is the
+    same tensor on every later call (a hit): no table build, no upload, no
+    sync. It is shared, so no caller writes to it; past `TABLES_KEPT`
+    entries the oldest is dropped, so a caller that reads it after its call
+    returns (a captured CUDA graph) keeps its own reference."""
     key = (hasher.kind, hasher.canonical, getattr(hasher, "rot_offset", 0))
     with profiling.span("hasher tables"):
-        tables = char_tables(hasher, text)
-        if tables is None:
+        if hasher.kind == "antilex":
             return key, None
-        return key, upload(tables.astype(np.int64), require_cuda(device), "tables upload")
+        device = require_cuda(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        found = _table_key(hasher, device, text, key)
+        with _tables_lock:
+            hit = _tables.get(found)
+        if hit is not None:
+            count_tables("hits")
+            return hit
+        tables = upload(char_tables(hasher, text).astype(np.int64), device, "tables upload")
+        count_tables("uploads")
+        with _tables_lock:
+            _tables[found] = key, tables
+            while len(_tables) > TABLES_KEPT:
+                _tables.popitem(last=False)
+        return key, tables
+
+
+def _table_key(hasher: KmerHasher, device: torch.device, text: bool, key: tuple) -> tuple:
+    """What the kernels read of `hasher_tensors`' answer: the device, the
+    key, the number of entries and the table's contents (the nt table's
+    bytes or the mul constant), not the hasher object."""
+    if hasher.kind == "nt":
+        contents = np.asarray(hasher.table, dtype=np.uint32).tobytes()
+    elif hasher.kind == "mul":
+        contents = int(hasher.mul_const)
+    else:
+        raise ValueError(f"unknown hasher kind {hasher.kind!r}")
+    return device.type, device.index, *key, text, contents
 
 
 def upload(data: np.ndarray, device: torch.device, site: str) -> torch.Tensor:
     """`data` as a tensor on `device`, counted at `site`: on a card a blocking
     copy from pageable memory, which PyTorch ends by waiting for the stream;
-    on the CPU the array itself."""
+    on the CPU the array itself. A hasher's tables come this way once per
+    device and table in a process (`hasher_tensors`)."""
     count_bytes("h2d pageable", data.nbytes)
     count_sync(site)
     return torch.from_numpy(data).to(device)

@@ -361,7 +361,6 @@ def sketch_records(records, k: int, w: int, hasher, mode: str = pipeline.MODE_MI
     rec_parts = [[] for _ in range(nrec)]
     wave = LaunchWave(mode, lambda ri, res: rec_parts[ri].append(convert.Download(res, copies)),
                       wave_bytes)
-    tables_for = {}
     starts = [[] for _ in range(nrec)]
     texts = [False] * nrec
     for ri, rec in enumerate(records):
@@ -374,9 +373,7 @@ def sketch_records(records, k: int, w: int, hasher, mode: str = pipeline.MODE_MI
         if n < l:
             continue
         text = texts[ri]
-        if text not in tables_for:
-            tables_for[text] = convert.hasher_tensors(hasher, device, text)
-        (kind, canonical, rot), tables = tables_for[text]
+        (kind, canonical, rot), tables = convert.hasher_tensors(hasher, device, text)
         chars = convert.code_bytes(codes, device)
         plane = None if masks[ri] is None else convert.ambiguity_plane(masks[ri], n, device)
         starts[ri] = _submit_spans(wave, ri, chars, n, plane, 1, limit, k, w, tables, rot,

@@ -25,9 +25,10 @@ blocks, workers and bytes of the compressed .npz writes (`utils/npz.py`,
 `count_deflate`); `STAGED` the pieces, workers and bytes of the read
 matrices staged through pinned buffers (`convert.staged_rows`,
 `count_staged`), whose waits on a buffer's last copy count at the site
-`staging wait`. `PROFILED` holds what the calls made while a profiler
-recorded counted inside the port's spans, and the seconds in each span:
-only the benchmark's readers read it (ROADMAP A2c takes it out). Like
+`staging wait`; `TABLES` the hasher tables uploaded and found kept on
+their device (`convert.hasher_tensors`, `count_tables`). `PROFILED` holds
+what the calls made while a profiler recorded counted inside the port's
+spans, and the seconds in each span: only the benchmark's readers read it (ROADMAP A2c takes it out). Like
 `ops.fused.LAUNCHES` they take no lock: calls from several threads at once
 may lose a count."""
 
@@ -54,11 +55,14 @@ DEFLATE: collections.Counter = collections.Counter()
 # the staged uploads of read matrices (convert.staged_rows): "pieces" copied
 # into pinned buffers, "workers" (the threads of each upload, summed), "bytes"
 STAGED: collections.Counter = collections.Counter()
-# while a profiler recorded: "syncs", "bus_bytes", "deflate" and "staged" as
-# above, "span_s" seconds by span name (without the prefix)
+# the hasher tables of convert.hasher_tensors: "uploads" (built and sent to
+# a device), "hits" (found kept on it)
+TABLES: collections.Counter = collections.Counter()
+# while a profiler recorded: "syncs", "bus_bytes", "deflate", "staged" and
+# "tables" as above, "span_s" seconds by span name (without the prefix)
 PROFILED = {"syncs": collections.Counter(), "bus_bytes": collections.Counter(),
             "deflate": collections.Counter(), "staged": collections.Counter(),
-            "span_s": collections.Counter()}
+            "tables": collections.Counter(), "span_s": collections.Counter()}
 recording = torch._C._autograd._profiler_enabled  # a torch.profiler session records
 _OFF = contextlib.nullcontext()
 _open_spans = 0  # spans open in a recording profiler
@@ -175,6 +179,14 @@ def count_staged(counts: dict) -> None:
     STAGED.update(counts)
     if _open_spans:
         PROFILED["staged"].update(counts)
+
+
+def count_tables(event: str) -> None:
+    """One hasher table `event`, "uploads" or "hits" (TABLES); the upload's
+    bytes and sync are counted by `convert.upload`."""
+    TABLES[event] += 1
+    if _open_spans:
+        PROFILED["tables"][event] += 1
 
 
 class _Span:

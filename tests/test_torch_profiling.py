@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import simd_minimizers_tpu_torch as smt
+from simd_minimizers_tpu_torch import convert
 from simd_minimizers_tpu_torch.ops import backend, batch, pipeline
 from simd_minimizers_tpu_torch.ops.device_sketcher import ShortSeqSketcher
 from simd_minimizers_tpu_torch.utils import profiling
@@ -193,10 +194,29 @@ def _positions(out) -> int:
     return sum(np.asarray(p).size for p in (out if isinstance(out, list) else [out]))
 
 
-def _expected_counts(entry: str, out):
-    """(SYNCS, BUS_BYTES) of one call of `entry` on the CPU, from its
-    inputs: every blocking upload waits for the card's stream and counts as
-    a sync; 2-bit nt tables are 2 x 4 int64 (64 B)."""
+def _expected_counts(entry: str, out, warm: bool = False):
+    """(SYNCS, BUS_BYTES, TABLES) of one call of `entry` on the CPU, from
+    its inputs: every blocking upload waits for the card's stream and counts
+    as a sync. The hasher's tables (2-bit nt: 2 x 4 int64, 64 B) cross once
+    per device and table: a cold call, made with no table kept, uploads them
+    at its first lookup (the span route looks them up once a record, the
+    batch route once in each of its two routes), and a warm call, made after
+    a call of the same entry, finds them kept. The short sketcher keeps its
+    own from its construction."""
+    syncs, moved = _cold_counts(entry, out)
+    lookups = {"short": 0, "sketch_records, span route": len(RECORDS),
+               "sketch_records, batch route": 2}.get(entry, 1)
+    if not warm:
+        tables = {"uploads": 1, "hits": lookups - 1} if lookups else {}
+        return syncs, moved, {k: v for k, v in tables.items() if v}
+    if syncs.pop("tables upload", 0):
+        moved["h2d pageable"] -= 64
+        moved = {k: v for k, v in moved.items() if v}
+    return syncs, moved, {"hits": lookups} if lookups else {}
+
+
+def _cold_counts(entry: str, out):
+    """(SYNCS, BUS_BYTES) of a cold call of `entry` (`_expected_counts`)."""
     if entry == "run_batch":  # the matrix staged through pinned buffers, folded on the device
         return ({"dna probe": 1, "tables upload": 1, "totals readback": 1, "download wait": 1},
                 {"h2d pinned": READS.size, "h2d pageable": 64, "d2h pageable": 4 + 4,
@@ -224,10 +244,10 @@ def _expected_counts(entry: str, out):
     b = _buckets([x.size for x in small])
     rows = sum(x.size for x in big)
     slots = sum(batch._stride_bucket(x.size + 1) for x in small)
-    syncs = {"tables upload": 2, "upload": 2 * len(big) + 2 * b, "wave totals": 1,
+    syncs = {"tables upload": 1, "upload": 2 * len(big) + 2 * b, "wave totals": 1,
              "download wait": len(big) + 1, "padding plane": 2 * b, "totals readback": b,
              "read ids": b}
-    h2d = (2 * 64 + rows + sum(-(-x.size // 8) for x in big)  # span route
+    h2d = (64 + rows + sum(-(-x.size // 8) for x in big)  # span route
            + 2 * slots + 8 * len(small) + 8 * b + 8 * len(small))  # codes, flags, lens, ids
     d2h_pinned = 4 * sum(_positions(o) for x, o in zip(RECORDS, out) if x.size > 1000) \
         + 4 * 2 * sum(_positions(o) for x, o in zip(RECORDS, out) if x.size <= 1000)
@@ -307,25 +327,55 @@ def test_results_are_the_same_with_the_profiler_on(entry):
     _same(on, off)
 
 
+def _counted(call):
+    """(result, SYNCS, BUS_BYTES and TABLES added) of one `call()`."""
+    before = [collections.Counter(c) for c in (profiling.SYNCS, profiling.BUS_BYTES,
+                                                profiling.TABLES)]
+    out = call()
+    return (out, *(dict(c - b) for c, b in zip((profiling.SYNCS, profiling.BUS_BYTES,
+                                                 profiling.TABLES), before)))
+
+
 @pytest.mark.parametrize("entry", list(ENTRIES))
 def test_counters_per_call(entry):
-    """SYNCS and BUS_BYTES of one call on the CPU, site by site and kind by
-    kind; PROFILED holds the same for a call made under the profiler."""
+    """SYNCS, BUS_BYTES and TABLES of one cold call on the CPU (no hasher
+    table kept), site by site and kind by kind; PROFILED holds the same for
+    a cold call made under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     call = ENTRIES[entry][0]
     call()
-    syncs, moved = collections.Counter(profiling.SYNCS), collections.Counter(profiling.BUS_BYTES)
-    out = call()
-    want_syncs, want_bytes = _expected_counts(entry, out)
-    assert dict(profiling.SYNCS - syncs) == want_syncs
-    assert dict(profiling.BUS_BYTES - moved) == want_bytes
+    convert._tables.clear()
+    out, *counted = _counted(call)
+    want = _expected_counts(entry, out)
+    assert counted == list(want)
+    _clear_profiled()
+    convert._tables.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        call()
+    assert [dict(profiling.PROFILED[k]) for k in ("syncs", "bus_bytes", "tables")] == list(want)
+    assert profiling.PROFILED["span_s"][ENTRIES[entry][1]] > 0
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+def test_counters_per_warm_call(entry):
+    """A second call of each entry finds the hasher's tables kept: no
+    `tables upload`, 64 fewer `h2d pageable` bytes than the cold call, one
+    TABLES hit a lookup and no upload, under the profiler too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call = ENTRIES[entry][0]
+    convert._tables.clear()
+    cold = _counted(call)
+    out, *counted = _counted(call)
+    want = _expected_counts(entry, out, warm=True)
+    assert counted == list(want) and "tables upload" not in counted[0]
+    assert (counted[1].get("h2d pageable", 0)
+            == cold[2].get("h2d pageable", 0) - 64 * ("tables upload" in cold[1]))
     _clear_profiled()
     with profile(activities=[ProfilerActivity.CPU]):
         call()
-    assert dict(profiling.PROFILED["syncs"]) == want_syncs
-    assert dict(profiling.PROFILED["bus_bytes"]) == want_bytes
-    assert profiling.PROFILED["span_s"][ENTRIES[entry][1]] > 0
+    assert [dict(profiling.PROFILED[k]) for k in ("syncs", "bus_bytes", "tables")] == list(want)
 
 
 @pytest.mark.parametrize("bucketed", [False, True])
